@@ -1,0 +1,124 @@
+"""Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
+configs for both packages from one set of overrides, JAX variables with
+random BatchNorm affines and statistics, and their torch model."""
+
+import numpy as np
+import pytest
+import torch
+
+# the tiny grid of tests/conftest.py::tiny_config (10 x 64 x 64 voxels)
+TINY = {
+    "object": {"x_max": 12.8, "y_min": -6.4, "y_max": 6.4},
+    "data": {"max_points": 2048, "max_voxels": 256, "max_gt_boxes": 8},
+    "train": {"batch_size": 2, "compute_dtype": "float32"},
+}
+
+
+def merged(base: dict, **extra) -> dict:
+    out = {k: dict(v) for k, v in base.items()}
+    for group, values in extra.items():
+        out.setdefault(group, {}).update(values)
+    return out
+
+
+def configs(class_name="Car", overrides=TINY):
+    """(JAX config, port config) built from the same overrides."""
+    from voxelnet_tpu.config import get_config as jax_get_config
+
+    from voxelnet_tpu_torch.config import get_config
+
+    return (jax_get_config(class_name, **overrides),
+            get_config(class_name, **overrides))
+
+
+def randomize_bn(variables, seed: int):
+    """Numpy copy of a flax variables tree with every BatchNorm's scale,
+    bias, mean and var drawn at random (scale/var in [0.5, 1.5], bias/mean
+    ~ N(0, 0.1)), so eval-mode BN and its folds do real work."""
+    import jax
+
+    rng = np.random.default_rng(seed)
+    out = jax.tree.map(lambda x: np.array(x, np.float32), variables)
+
+    def walk(params, stats):
+        for key, sub in params.items():
+            if isinstance(sub, dict) and "scale" in sub:
+                n = sub["scale"].shape
+                sub["scale"] = rng.uniform(0.5, 1.5, n).astype(np.float32)
+                sub["bias"] = rng.normal(0, 0.1, n).astype(np.float32)
+                stats[key]["mean"] = rng.normal(0, 0.1, n).astype(np.float32)
+                stats[key]["var"] = rng.uniform(0.5, 1.5, n).astype(np.float32)
+            elif isinstance(sub, dict):
+                walk(sub, stats.get(key, {}))
+
+    walk(out["params"], out["batch_stats"])
+    return out
+
+
+def jax_variables(cfg, seed: int = 0):
+    """Random flax variables of the JAX VoxelNet for `cfg`, made with numpy
+    from the tree's shapes (no init compile): kernels uniform in
+    +-1/sqrt(fan_in), biases in +-0.1, random BatchNorms."""
+    import jax
+    import jax.numpy as jnp
+
+    from voxelnet_tpu.models.voxelnet import build_model
+
+    T = cfg.object.points_per_voxel
+    shapes = jax.eval_shape(lambda: build_model(cfg, platform="cpu").init(
+        jax.random.key(0), jnp.zeros((1, 1, T, 7)),
+        jnp.zeros((1, 1, 3), jnp.int32), jnp.zeros((1, 1), jnp.int32)))
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        name = path[-1].key
+        bound = (1.0 / np.sqrt(np.prod(s.shape[:-1])) if name == "kernel"
+                 else 0.1)
+        return rng.uniform(-bound, bound, s.shape).astype(np.float32)
+
+    variables = jax.tree_util.tree_map_with_path(leaf, shapes)
+    return randomize_bn(variables, seed + 100)
+
+
+def torch_model(port_cfg, variables):
+    from voxelnet_tpu_torch.convert import from_jax_variables
+    from voxelnet_tpu_torch.models.voxelnet import VoxelNet
+
+    model = VoxelNet(port_cfg)
+    model.load_state_dict(from_jax_variables(variables))
+    return model.eval()
+
+
+def random_points(rng, cfg, batch: int, n: int):
+    """(B, max_points, 4) points uniform over the grid box plus a margin
+    outside it, and (B,) counts n."""
+    obj = cfg.object
+    lo = np.asarray([obj.x_min - 1.0, obj.y_min - 1.0, obj.z_min - 0.5])
+    hi = np.asarray([obj.x_max + 1.0, obj.y_max + 1.0, obj.z_max + 0.5])
+    pts = np.zeros((batch, cfg.data.max_points, 4), np.float32)
+    pts[:, :n, :3] = rng.uniform(lo, hi, (batch, n, 3))
+    pts[:, :n, 3] = rng.uniform(0.0, 1.0, (batch, n))
+    return pts, np.full((batch,), n, np.int32)
+
+
+def assert_bf16_close(got: torch.Tensor, want: np.ndarray):
+    """At least 99.9% of the elements bit-equal as values, the rest
+    within 2**-7 relative (one bf16 ulp at a rounding boundary): the f32
+    accumulation order of the two dot products differs."""
+    g = got.to(torch.float32).numpy()
+    w = np.asarray(want, np.float32)
+    assert g.shape == w.shape
+    equal = g == w
+    assert equal.mean() >= 0.999, equal.mean()
+    rel = np.abs(g - w) / np.maximum(np.abs(w), 1e-30)
+    assert (rel[~equal] <= 2.0 ** -7).all(), rel[~equal].max()
+
+
+@pytest.fixture
+def cuda_device():
+    """The first CUDA device; skips the test where torch sees none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)

@@ -1,0 +1,97 @@
+"""Build the CUDA sources in `voxelnet_tpu_torch/csrc/` with nvcc into
+shared libraries with a plain C interface, and load them with ctypes.
+
+A library is built at first use into `voxelnet_tpu_torch/_build/`, named
+by a hash of its source and flags, so an edited source never loads a stale
+build. Every exported launcher takes device pointers and the CUDA stream as
+`void*` and returns `cudaGetLastError()` after its launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+build_seconds: dict[str, float] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA "
+            "kernels of voxelnet_tpu_torch are built from csrc/ at first use")
+    return found
+
+
+def load(name: str, argtypes: dict[str, list]) -> ctypes.CDLL:
+    """csrc/<name>.cu -> loaded library with `argtypes` declared for each
+    exported function (restype int: the launch's cudaError_t)."""
+    if name in _loaded:
+        return _loaded[name]
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    lib_path = os.path.join(BUILD_DIR,
+                            f"lib{name}-{digest.hexdigest()[:16]}.so")
+    if not os.path.exists(lib_path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib_path)
+        build_seconds[name] = time.perf_counter() - t0
+    lib = ctypes.CDLL(lib_path)
+    for fn, types in argtypes.items():
+        getattr(lib, fn).argtypes = types
+        getattr(lib, fn).restype = ctypes.c_int
+    _loaded[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def on_cpu(t) -> bool:
+    """A wrapper runs its kernel's plain version only for CPU tensors."""
+    return t.device.type == "cpu"
+
+
+def require_shapes(what: str, want: dict) -> None:
+    """want: name -> (tensor, dtype, shape); raise on the first mismatch."""
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{what}: {name} must be {dtype} {tuple(shape)}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+
+
+def require_cuda(what: str, *tensors) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device."""
+    devices = {t.device for t in tensors}
+    if any(t.device.type != "cuda" for t in tensors) or len(devices) != 1:
+        raise ValueError(f"{what}: the kernel takes CUDA tensors on one "
+                         f"device, got {sorted(map(str, devices))}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: the kernel takes contiguous tensors")

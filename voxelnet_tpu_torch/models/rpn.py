@@ -1,0 +1,72 @@
+"""2D convolutional Region Proposal Network, as `voxelnet_tpu/models/rpn.py`:
+three conv blocks (5 + 6 + 6 convs), each deconvolved to a common
+(H/2, W/2) map, concatenated to 768 channels, then 1x1 cls/reg heads that
+return f32 logits. flax 'SAME' (k3 s1) is padding 1, 'VALID' (k2 s2, k4 s4)
+padding 0. Module names follow the flax tree."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+class ConvBNReLU(nn.Module):
+    def __init__(self, cin: int, cout: int, stride: int):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(cin, cout, 3, stride=stride, padding=1)
+        self.BatchNorm_0 = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.Conv_0(x)
+        if self.BatchNorm_0 is not None:   # None once folded (bn_fold.py)
+            y = self.BatchNorm_0(y.float())
+        return torch.relu(y).to(x.dtype)
+
+
+class DeconvBNReLU(nn.Module):
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int):
+        super().__init__()
+        self.ConvTranspose_0 = nn.ConvTranspose2d(
+            cin, cout, kernel, stride=stride, padding=1 if stride == 1 else 0)
+        self.BatchNorm_0 = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.ConvTranspose_0(x)
+        if self.BatchNorm_0 is not None:
+            y = self.BatchNorm_0(y.float())
+        return torch.relu(y).to(x.dtype)
+
+
+class RPN(nn.Module):
+    """BEV (B, cin, H, W) -> cls logits (B, H', W', 2), reg (B, H', W', 14),
+    H' = H / 2 for block1_stride 2 (H for 1)."""
+
+    def __init__(self, cin: int = 128, block1_stride: int = 2):
+        super().__init__()
+        convs = ([(cin, 128, block1_stride)] + [(128, 128, 1)] * 4
+                 + [(128, 128, 2)] + [(128, 128, 1)] * 5
+                 + [(128, 256, 2)] + [(256, 256, 1)] * 5)
+        for i, (ci, co, s) in enumerate(convs):
+            self.add_module(f"ConvBNReLU_{i}", ConvBNReLU(ci, co, s))
+        self.DeconvBNReLU_0 = DeconvBNReLU(128, 256, 3, 1)
+        self.DeconvBNReLU_1 = DeconvBNReLU(128, 256, 2, 2)
+        self.DeconvBNReLU_2 = DeconvBNReLU(256, 256, 4, 4)
+        self.prob_conv = nn.Conv2d(768, 2, 1)
+        self.reg_conv = nn.Conv2d(768, 14, 1)
+
+    def _convs(self, x, lo, hi):
+        for i in range(lo, hi):
+            x = getattr(self, f"ConvBNReLU_{i}")(x)
+        return x
+
+    def forward(self, x: torch.Tensor):
+        x = self._convs(x, 0, 5)
+        up1 = self.DeconvBNReLU_0(x)
+        x = self._convs(x, 5, 11)
+        up2 = self.DeconvBNReLU_1(x)
+        x = self._convs(x, 11, 17)
+        up3 = self.DeconvBNReLU_2(x)
+        feats = torch.cat([up3, up2, up1], dim=1)
+        cls = self.prob_conv(feats).permute(0, 2, 3, 1).float()
+        reg = self.reg_conv(feats).permute(0, 2, 3, 1).float()
+        return cls, reg

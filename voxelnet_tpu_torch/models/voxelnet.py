@@ -1,0 +1,162 @@
+"""The VoxelNet detector and its single-path inference function.
+
+Counterpart of `voxelnet_tpu/models/voxelnet.py` (`VoxelNet`,
+`make_inference_fn`). Inference runs, in order: sort + run analysis
+(ops/voxelize.prepare), the fused voxel-table + VFE kernel, the streaming
+dense-grid kernel, the Conv3D middle stack, the RPN, sigmoid + anchor
+decode, and score gate + top-k + rotated-BEV NMS.
+"""
+
+from __future__ import annotations
+
+import copy
+import itertools
+import time
+import weakref
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from voxelnet_tpu_torch.config import VoxelNetConfig, resolve_plan
+from voxelnet_tpu_torch.models.bn_fold import fold_bn_
+from voxelnet_tpu_torch.models.init import init_
+from voxelnet_tpu_torch.models.middle import MiddleLayers, depth_out
+from voxelnet_tpu_torch.models.rpn import RPN
+from voxelnet_tpu_torch.models.scatter import scatter_to_dense_streamed
+from voxelnet_tpu_torch.models.vfe import FeatureLearningNet
+from voxelnet_tpu_torch.ops import box_coding, nms
+from voxelnet_tpu_torch.ops.anchors import anchors_flat
+from voxelnet_tpu_torch.ops.voxelize import VoxelGridSpec, prepare
+
+STAGES = ("prepare", "vfe", "dense", "middle", "rpn", "decode", "nms")
+
+
+class VoxelNet(nn.Module):
+    """Parameter tree of the flax VoxelNet: feature_net, middle, rpn."""
+
+    def __init__(self, config: VoxelNetConfig):
+        super().__init__()
+        obj = config.object
+        self.feature_net = FeatureLearningNet(obj.points_per_voxel)
+        self.middle = MiddleLayers(cin=128)
+        self.rpn = RPN(cin=64 * depth_out(obj.depth),
+                       block1_stride=config.rpn.block1_stride)
+
+
+class Detections(NamedTuple):
+    boxes: torch.Tensor    # (B, post_topk, 7) lidar boxes
+    scores: torch.Tensor   # (B, post_topk)
+    valid: torch.Tensor    # (B, post_topk) bool
+
+
+def build_model(config: VoxelNetConfig, seed: int = 0,
+                device: torch.device | str = "cpu") -> VoxelNet:
+    """Randomly initialized model (models/init.py) in eval mode."""
+    model = VoxelNet(config)
+    init_(model, torch.Generator().manual_seed(seed))
+    return model.to(device).eval()
+
+
+def prepare_for_inference(model: VoxelNet, fold_bn: bool,
+                          dtype: torch.dtype) -> VoxelNet:
+    """A copy of `model` for the inference path: eval mode, middle/RPN BNs
+    folded into their convs when `fold_bn`, conv weights cast once to the
+    compute dtype (the BNs that stay run in f32, the VFE parameters stay
+    f32 for the kernel's fold), channels-last conv weights."""
+    net = copy.deepcopy(model).eval()
+    if fold_bn:
+        fold_bn_(net)
+    for m in itertools.chain(net.middle.modules(), net.rpn.modules()):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)):
+            fmt = (torch.channels_last_3d if m.weight.dim() == 5
+                   else torch.channels_last)
+            m.weight.data = m.weight.data.to(dtype).contiguous(
+                memory_format=fmt)
+            m.bias.data = m.bias.data.to(dtype)
+    return net
+
+
+def _versions(model: nn.Module) -> tuple[int, ...]:
+    return tuple(t._version for t in itertools.chain(model.parameters(),
+                                                     model.buffers()))
+
+
+def make_inference_fn(config: VoxelNetConfig,
+                      device: torch.device | str = "cuda"):
+    """-> fn(model, points (B, N, 4) f32, num_points (B,) i32,
+    marks=None) -> Detections, all on `device`.
+
+    The model's weights are folded and cast at the first call with it and
+    again only after a parameter or buffer changes in place. `marks`: a
+    list that receives (stage, CUDA event or host time) after each stage
+    of STAGES, for per-stage timing.
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch sees no CUDA "
+                           "device")
+    plan = resolve_plan(config)
+    dtype = getattr(torch, plan.dtype)
+    spec = VoxelGridSpec.from_object_config(config.object)
+    anchors = torch.from_numpy(anchors_flat(config.object)).to(device)
+    obj, rpn_cfg = config.object, config.rpn
+    max_voxels = config.data.max_voxels
+    cache: dict = {}
+
+    def prepared(model: VoxelNet) -> VoxelNet:
+        versions = _versions(model)
+        ref = cache.get("model")
+        if ref is None or ref() is not model or cache["versions"] != versions:
+            cache.update(model=weakref.ref(model), versions=versions,
+                         net=prepare_for_inference(model, plan.fold_bn,
+                                                   dtype))
+        return cache["net"]
+
+    def mark(marks, stage):
+        if marks is None:
+            return
+        if device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((stage, ev))
+        else:
+            marks.append((stage, time.perf_counter()))
+
+    def fn(model: VoxelNet, points, num_points, marks=None) -> Detections:
+        with torch.no_grad():
+            net = prepared(model)
+        with torch.inference_mode():
+            return run(net, points, num_points, marks)
+
+    def run(net: VoxelNet, points, num_points, marks) -> Detections:
+        points = torch.as_tensor(points, dtype=torch.float32, device=device)
+        num_points = torch.as_tensor(num_points, dtype=torch.int32,
+                                     device=device)
+        mark(marks, "start")
+        prep = prepare(points, num_points, spec, max_voxels)
+        mark(marks, "prepare")
+        voxelwise = net.feature_net(prep)
+        mark(marks, "vfe")
+        dense = scatter_to_dense_streamed(voxelwise, prep.coords,
+                                          prep.counts, obj.grid_size)
+        mark(marks, "dense")
+        bev = net.middle(dense.to(dtype))
+        mark(marks, "middle")
+        cls_logits, reg = net.rpn(bev)
+        mark(marks, "rpn")
+        b = cls_logits.shape[0]
+        probs = torch.sigmoid(cls_logits).reshape(b, -1)
+        boxes = box_coding.decode_deltas(
+            reg.reshape(b, -1, 7), anchors, obj.anchor_h,
+            yaw_mode=config.train.yaw_encoding)
+        mark(marks, "decode")
+        res = nms.nms_bev(boxes, probs, score_thresh=rpn_cfg.score_thres,
+                          iou_thresh=rpn_cfg.nms_thres,
+                          pre_topk=rpn_cfg.nms_pre_topk,
+                          post_topk=rpn_cfg.nms_post_topk,
+                          mode=rpn_cfg.nms_mode)
+        mark(marks, "nms")
+        return Detections(res.boxes, res.scores, res.valid)
+
+    return fn

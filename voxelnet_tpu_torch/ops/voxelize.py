@@ -1,0 +1,151 @@
+"""Voxelization front end: host staging in numpy and the sort + run
+analysis in torch.
+
+Counterpart of `voxelnet_tpu/ops/voxelize.py` (`VoxelGridSpec`,
+`in_grid_mask`, `pad_points`, `_sort_stage`, `_pallas_prepare` with the
+planar layout, `_decode_zyx`). The integer outputs match the JAX function
+exactly: the same f32 shift + divide + floor binning, the same stable sort
+by linear voxel id, the same run-start table.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class VoxelGridSpec(NamedTuple):
+    """Static voxelization parameters derived from an ObjectConfig."""
+
+    grid_dzyx: tuple[int, int, int]         # (D, H, W)
+    voxel_size_zyx: tuple[float, float, float]
+    offset_xyz: tuple[float, float, float]  # added to points before binning
+    max_points_per_voxel: int               # T
+
+    @classmethod
+    def from_object_config(cls, obj) -> "VoxelGridSpec":
+        return cls(grid_dzyx=tuple(obj.grid_size),
+                   voxel_size_zyx=tuple(obj.voxel_size_zyx),
+                   offset_xyz=tuple(obj.lidar_offset),
+                   max_points_per_voxel=obj.points_per_voxel)
+
+
+class Prepared(NamedTuple):
+    """Per-batch output of `prepare` (B frames, N points, K voxel slots)."""
+
+    sorted_planar: torch.Tensor   # (B, 4, N) f32, points sorted by voxel id
+    run_start: torch.Tensor       # (B, K) i32, first sorted index; N = empty
+    counts: torch.Tensor          # (B, K) i32, stored points per voxel (<= T)
+    coords: torch.Tensor          # (B, K, 3) i32 zyx; (0, 0, 0) = empty
+    num_voxels: torch.Tensor      # (B,) i32, occupied voxels kept (<= K)
+    num_voxels_raw: torch.Tensor  # (B,) i32, occupied voxels before the cap
+
+
+def in_grid_mask(points: np.ndarray, spec: VoxelGridSpec) -> np.ndarray:
+    """Boolean mask of the points the voxelizer keeps: the exact f32
+    shift + divide + floor binning of `prepare`, so a crop by this mask
+    never disagrees with the binning at voxel boundaries."""
+    D, H, W = spec.grid_dzyx
+    pts = np.asarray(points, np.float32).reshape(-1, 4)
+    shifted = pts[:, :3] + np.asarray(spec.offset_xyz, np.float32)
+    vx = np.floor(shifted[:, 0] / np.float32(spec.voxel_size_zyx[2]))
+    vy = np.floor(shifted[:, 1] / np.float32(spec.voxel_size_zyx[1]))
+    vz = np.floor(shifted[:, 2] / np.float32(spec.voxel_size_zyx[0]))
+    return ((vz >= 0) & (vz < D) & (vy >= 0) & (vy < H)
+            & (vx >= 0) & (vx < W))
+
+
+def crop_points(points: np.ndarray, spec: VoxelGridSpec) -> np.ndarray:
+    pts = np.asarray(points, np.float32).reshape(-1, 4)
+    return pts[in_grid_mask(pts, spec)]
+
+
+def pad_points(points: np.ndarray, max_points: int,
+               rng: np.random.Generator | None = None,
+               shuffle: bool = False):
+    """(N, 4) ragged -> ((max_points, 4) f32, count). Above max_points a
+    uniform random subsample (shuffle=True) or the first max_points."""
+    pts = np.asarray(points, np.float32).reshape(-1, 4)
+    if shuffle:
+        rng = rng or np.random.default_rng()
+        pts = pts[rng.permutation(len(pts))]
+    n = min(len(pts), max_points)
+    out = np.zeros((max_points, 4), np.float32)
+    out[:n] = pts[:n]
+    return out, np.int32(n)
+
+
+def decode_zyx(linear_ids: torch.Tensor, spec: VoxelGridSpec) -> torch.Tensor:
+    """Linear voxel ids (vz * H + vy) * W + vx -> (..., 3) zyx coords."""
+    _, H, W = spec.grid_dzyx
+    vx = linear_ids % W
+    rest = linear_ids // W
+    return torch.stack([rest // H, rest % H, vx], dim=-1)
+
+
+def prepare(points: torch.Tensor, num_points: torch.Tensor,
+            spec: VoxelGridSpec, max_voxels: int) -> Prepared:
+    """(B, N, 4) f32 padded points + (B,) valid counts -> `Prepared`.
+
+    Points are binned by floor(shifted / size) in f32 (a true divide: a
+    reciprocal multiply rounds differently within an ulp of a voxel
+    boundary), stable-sorted by linear voxel id (invalid points sort last
+    under the id D*H*W), and cut into runs. Above `max_voxels` the voxels
+    with the lowest ids are kept.
+    """
+    if points.dim() != 3 or points.shape[-1] != 4:
+        raise ValueError(f"points must be (B, N, 4), got {tuple(points.shape)}")
+    dev = points.device
+    points = points.to(torch.float32)
+    B, N, _ = points.shape
+    D, H, W = spec.grid_dzyx
+    T = spec.max_points_per_voxel
+    K = max_voxels
+    invalid = D * H * W
+
+    offset = torch.tensor(spec.offset_xyz, dtype=torch.float32, device=dev)
+    sizes = torch.tensor(
+        (spec.voxel_size_zyx[2], spec.voxel_size_zyx[1],
+         spec.voxel_size_zyx[0]), dtype=torch.float32, device=dev)
+    vf = torch.floor((points[..., :3] + offset) / sizes)      # (B, N, 3) xyz
+    limits = torch.tensor((W, H, D), dtype=torch.float32, device=dev)
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    valid = ((idx[None] < num_points.to(dev, torch.int32)[:, None])
+             & ((vf >= 0) & (vf < limits)).all(dim=-1))
+    v = torch.where(valid[..., None], vf, 0.0).to(torch.int32)
+    linear = torch.where(valid, (v[..., 2] * H + v[..., 1]) * W + v[..., 0],
+                         invalid)
+
+    sort_ids, order = torch.sort(linear, dim=1, stable=True)
+    sorted_planar = torch.gather(
+        points.transpose(1, 2), 2, order[:, None, :].expand(B, 4, N))
+    sorted_valid = sort_ids < invalid
+
+    prev = torch.cat([torch.full((B, 1), -1, dtype=torch.int32, device=dev),
+                      sort_ids[:, :-1]], dim=1)
+    is_start = (sort_ids != prev) & sorted_valid
+    voxel_slot = torch.cumsum(is_start, dim=1, dtype=torch.int32) - 1
+    num_voxels_raw = voxel_slot[:, -1] + 1
+    num_voxels = torch.clamp(num_voxels_raw, max=K)
+
+    # one table holds run starts and count boundaries: slot k < K gets the
+    # start of voxel k, slot K (the first voxel over the cap) closes the
+    # last kept run, every other point lands in the unread slot K + 1
+    total_valid = sorted_valid.sum(dim=1, dtype=torch.int32)
+    slots = torch.where(is_start & (voxel_slot <= K), voxel_slot, K + 1)
+    starts = torch.full((B, K + 2), N, dtype=torch.int32, device=dev)
+    starts.scatter_(1, slots.long(), idx[None].expand(B, N).contiguous())
+    run_start = starts[:, :K].contiguous()
+    closed = torch.minimum(starts[:, :K + 1], total_valid[:, None])
+    counts = torch.clamp(closed[:, 1:] - closed[:, :-1], 0, T)
+
+    ids_padded = torch.cat(
+        [sort_ids, torch.zeros((B, 1), dtype=torch.int32, device=dev)], dim=1)
+    first_ids = torch.gather(ids_padded, 1,
+                             torch.clamp(run_start, max=N).long())
+    coords = decode_zyx(first_ids, spec)
+    return Prepared(sorted_planar, run_start, counts.to(torch.int32),
+                    coords.to(torch.int32), num_voxels.to(torch.int32),
+                    num_voxels_raw.to(torch.int32))
