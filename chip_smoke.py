@@ -1,21 +1,32 @@
-"""Drive the PyTorch port's Car inference path on one NVIDIA GPU.
+"""Drive the PyTorch port's Car inference path and train step on one
+NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 Phases, each fatal on failure:
   1. the card: `nvidia-smi` name and power limit, torch's device name;
-  2. build both CUDA kernels from voxelnet_tpu_torch/csrc/ with nvcc;
+  2. build the three CUDA sources of voxelnet_tpu_torch/csrc/ with nvcc,
+     one process each, started together;
   3. each kernel against its plain torch version at Car shapes (B=2,
      vendored frames): the fused VFE (>= 99.9% of elements bit-equal, the
-     rest within 2**-7 relative) and the dense-grid build (bit-equal), with
-     CUDA-event medians of both;
-  4. the main path through cli.predict on the 3 vendored frames at full
-     Car width (grid 10x400x352, max_points 65536, max_voxels 16384, bf16,
-     random init from a seed with random BN statistics), at score_thres
-     0.96 and 0.0; kernel launch counts read around that run; then the
-     same path at a tiny grid in f32 on the card against the CPU; then
-     per-stage and end-to-end CUDA-event times at B=1 and B=8, and a
-     torch.profiler kernel table of one call at each.
+     rest within 2**-7 relative), the dense-grid build in bf16 and f32 and
+     its gradient (bit-equal), the run-copy voxel table (bit-equal, also on
+     a crowded frame), with CUDA-event medians of each, of its plain
+     version and, for the run-copy, of one torch.gather call;
+  4. the inference main path through cli.predict on the 3 vendored frames
+     at full Car width (grid 10x400x352, max_points 65536, max_voxels
+     16384, bf16, random init from a seed with random BN statistics), at
+     score_thres 0.96 and 0.0; kernel launch counts read around that run;
+     then the same path at a tiny grid in f32 on the card against the CPU;
+     then per-stage and end-to-end CUDA-event times at B=1 and B=8, and a
+     torch.profiler kernel table of one call at each;
+  5. the train path: make_train_step at full Car width (bf16, B=2, 64 GT
+     slots) through several steps on one batch of vendored frames with
+     seeded synthetic Car boxes; every metric finite and the loss falling;
+     launch counts of the run-copy and dense-grid kernels read around
+     those steps; one step at the tiny f32 grid on the card against the
+     CPU; CUDA-event step times with the stage split and peak memory at
+     B=2 and B=8, and a profiler kernel table of one step at B=8.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing it when
 torch sees no CUDA device or any check fails.
@@ -23,7 +34,9 @@ torch sees no CUDA device or any check fails.
 
 from __future__ import annotations
 
+import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -35,16 +48,33 @@ import torch
 from voxelnet_tpu_torch.cli import predict
 from voxelnet_tpu_torch.config import get_config
 from voxelnet_tpu_torch.data.sample import sample_frames
-from voxelnet_tpu_torch.kernels import _build, dense_build, vfe_fused
+from voxelnet_tpu_torch.kernels import _build, dense_build, run_copy, vfe_fused
 from voxelnet_tpu_torch.models.init import randomize_bn_
 from voxelnet_tpu_torch.models.voxelnet import (STAGES, build_model,
                                                 make_inference_fn)
 from voxelnet_tpu_torch.ops.voxelize import VoxelGridSpec, prepare
+from voxelnet_tpu_torch.training.train_step import (TRAIN_STAGES,
+                                                    create_train_state,
+                                                    make_train_step)
 
 SEED = 0
 TINY = {"object": {"x_max": 12.8, "y_min": -6.4, "y_max": 6.4},
-        "data": {"max_points": 2048, "max_voxels": 256},
+        "data": {"max_points": 2048, "max_voxels": 256, "max_gt_boxes": 8},
         "train": {"compute_dtype": "float32"}, "rpn": {"score_thres": 0.0}}
+KERNELS = ("vfe_fused", "dense_build", "run_copy")
+REPLACES = {
+    "vfe_fused": "voxelnet_tpu/kernels/vfe_fused.py:52",
+    "dense_build": "voxelnet_tpu/kernels/dense_build.py:62",
+    "run_copy": "voxelnet_tpu/kernels/voxelize_pallas.py:189 "
+                "(_planar_t_kernel), :79 (_planar_kernel), :48 (_kernel)",
+}
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, f32 rate outside the tensor
+# cores (the VFE kernel's arithmetic is f32 FMAs on bf16-rounded inputs)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+# MACs per stored point of the VFE stack: 7->16 and 32->64
+VFE_FLOP_PER_POINT = 2 * (7 * 16 + 32 * 64)
+TRAIN_STEPS = 8
 
 
 class CheckFailed(RuntimeError):
@@ -78,6 +108,18 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, flops: float = 0.0) -> tuple[float, str]:
+    """Least time in ms for the work on an H100 SXM, and what bounds it:
+    the bytes over HBM bandwidth or the f32 operations over the f32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def make_model(config, device):
@@ -151,25 +193,88 @@ def phase_kernels(config, model, frames, device, card):
         c = prep.coords
         ids = torch.where(prep.counts > 0, (c[..., 0] * H + c[..., 1]) * W
                           + c[..., 2], n).to(torch.int32)
-        dgot = dense_build.dense_build(got, ids, n)
-        dwant = dense_build.dense_build_plain(got, ids, n)
-        torch.cuda.synchronize()
-        dense_err = float((dgot.float() - dwant.float()).abs().max())
-        check(torch.equal(dgot, dwant), "dense_build differs from plain")
-        print(f"  dense_build: bit-equal over {dgot.numel()} elements")
+        dense_err = 0.0
+        for feat in (got, got.float()):
+            dgot = dense_build.dense_build(feat, ids, n)
+            dwant = dense_build.dense_build_plain(feat, ids, n)
+            torch.cuda.synchronize()
+            dense_err = max(dense_err, float(
+                (dgot.float() - dwant.float()).abs().max()))
+            check(torch.equal(dgot, dwant),
+                  f"dense_build {feat.dtype} differs from plain")
+            print(f"  dense_build {feat.dtype}: bit-equal over "
+                  f"{dgot.numel()} elements")
+            del dgot, dwant
 
+    # the gradient: autograd's backward against an index_select gather of
+    # the same cotangent rows (clones: inference tensors take no autograd)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    cot = torch.randn((2, n, 128), generator=g, device=device).to(
+        torch.bfloat16)
+    x = got.clone().requires_grad_()
+    ids = ids.clone()
+    dense_build.dense_build_autograd(x, ids, n).backward(cot)
+    base = (torch.arange(2, device=device)[:, None] * n
+            + torch.clamp(ids, max=n - 1)).reshape(-1)
+    want_grad = cot.reshape(-1, 128).index_select(0, base).view(
+        x.shape) * (ids < n)[..., None].to(cot.dtype)
+    torch.cuda.synchronize()
+    check(torch.equal(x.grad, want_grad), "dense gradient differs from plain")
+    print(f"  dense_build gradient: bit-equal over {x.grad.numel()} elements")
+    del cot, x
+
+    with torch.inference_mode():
+        copy_err = 0.0
+        for name, p in (("vendored", prep), ("crowded", cp)):
+            rgot = run_copy.run_copy(p.sorted_planar, p.run_start, T)
+            rwant = run_copy.run_copy_plain(p.sorted_planar, p.run_start, T)
+            torch.cuda.synchronize()
+            copy_err = max(copy_err, float((rgot - rwant).abs().max()))
+            check(torch.equal(rgot, rwant), f"run_copy differs ({name})")
+            print(f"  run_copy ({name}): bit-equal over {rgot.numel()} "
+                  "elements")
+
+        padded = torch.nn.functional.pad(prep.sorted_planar, (0, T))
+        index = run_copy.gather_index(prep.run_start, T).contiguous()
+        f32 = got.float()
         times = {
             "vfe_fused": (cuda_ms(lambda: vfe_fused.vfe_fused(*args, T)),
                           cuda_ms(lambda: vfe_fused.vfe_fused_plain(*args,
-                                                                    T))),
+                                                                    T)),
+                          None),
             "dense_build": (cuda_ms(lambda: dense_build.dense_build(
                 got, ids, n)), cuda_ms(lambda: dense_build.dense_build_plain(
-                    got, ids, n))),
+                    got, ids, n)), None),
+            "dense_build_f32": (cuda_ms(lambda: dense_build.dense_build(
+                f32, ids, n)), cuda_ms(lambda: dense_build.dense_build_plain(
+                    f32, ids, n)), None),
+            "run_copy": (
+                cuda_ms(lambda: run_copy.run_copy(prep.sorted_planar,
+                                                  prep.run_start, T)),
+                cuda_ms(lambda: run_copy.run_copy_plain(
+                    prep.sorted_planar, prep.run_start, T)),
+                cuda_ms(lambda: torch.gather(padded, 2, index))),
         }
-    for name, (k_ms, p_ms) in times.items():
-        print(f"  {name}: kernel {k_ms} ms, plain {p_ms} ms "
-              f"(B=2, CUDA-event median) [{card}]")
-    return times, {"vfe_fused": vfe_err, "dense_build": dense_err}
+    for name, (k_ms, p_ms, l_ms) in times.items():
+        print(f"  {name}: kernel {k_ms} ms, plain {p_ms} ms, one torch call "
+              f"{l_ms} ms (B=2, CUDA-event median) [{card}]")
+
+    B, K = 2, prep.run_start.shape[1]
+    weights = nbytes(*w)
+    bounds = {
+        "vfe_fused": bound(
+            nbytes(prep.sorted_planar, prep.run_start, prep.num_voxels,
+                   prep.counts) + weights + B * K * 128 * 2,
+            VFE_FLOP_PER_POINT * float(prep.counts.sum())),
+        "dense_build": bound(nbytes(got, ids) + B * n * 128 * 2),
+        "run_copy": bound(nbytes(prep.sorted_planar, prep.run_start)
+                          + B * K * T * 16),
+    }
+    for name, (ms, by) in bounds.items():
+        print(f"  {name}: bound {ms} ms ({by}) at these inputs")
+    errs = {"vfe_fused": vfe_err, "dense_build": dense_err,
+            "run_copy": copy_err}
+    return times, errs, bounds
 
 
 def check_detections(det, config, batch):
@@ -183,11 +288,14 @@ def check_detections(det, config, batch):
     return counts.tolist()
 
 
+def reset_launches():
+    vfe_fused.launches = dense_build.launches = run_copy.launches = 0
+
+
 def phase_main_path(model, frames, device):
     """cli.predict's path on the 3 vendored frames at full Car width."""
     print("[4] main path: cli.predict on 3 vendored frames, Car, bf16")
-    vfe_fused.launches = 0
-    dense_build.launches = 0
+    reset_launches()
     results = {}
     for thres in (0.96, 0.0):
         config = get_config("Car", rpn={"score_thres": thres})
@@ -197,11 +305,12 @@ def phase_main_path(model, frames, device):
         torch.cuda.synchronize()
         results[thres] = check_detections(det, config, len(frames))
     launches = {"vfe_fused": vfe_fused.launches,
-                "dense_build": dense_build.launches}
+                "dense_build": dense_build.launches,
+                "run_copy": run_copy.launches}
     print(f"  valid detections per frame: score_thres 0.96 -> "
           f"{results[0.96]}, 0.0 -> {results[0.0]}; launches {launches}")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel was not launched on the main path: {launches}")
+    check(launches["vfe_fused"] > 0 and launches["dense_build"] > 0,
+          f"a kernel was not launched on the inference path: {launches}")
     check(sum(results[0.0]) > 0, "no detections at score_thres 0.0")
     return launches
 
@@ -209,9 +318,9 @@ def phase_main_path(model, frames, device):
 def phase_small_reference(device):
     """The same path at a tiny grid in f32: card against CPU."""
     config = get_config("Car", **TINY)
-    frames = [f[:20000] for f in sample_frames()[:2]]
-    points, num = predict.stage_points(frames, config,
+    points, num = predict.stage_points(sample_frames()[:2], config,
                                        np.random.default_rng(SEED))
+    check(int(num.min()) > 1000, f"tiny grid: only {num} points in the grid")
     model = make_model(config, "cpu")
     want = make_inference_fn(config, "cpu")(model, points, num)
     got = make_inference_fn(config, device)(model.to(device), points, num)
@@ -249,7 +358,7 @@ def phase_timing(model, frames, device, card):
         torch.cuda.reset_peak_memory_stats(device)
         per_stage = {s: [] for s in ("total",) + STAGES}
         host = []
-        for _ in range(10):
+        for _ in range(8):
             marks = []
             t0 = time.perf_counter()
             infer(model, points, num, marks)
@@ -265,11 +374,11 @@ def phase_timing(model, frames, device, card):
               f"{batch * 1e3 / med['total']} frames/s, peak {peak} GiB "
               f"[{card}]")
         print("    " + ", ".join(f"{s} {med[s]}" for s in STAGES) + " (ms)")
-        print_profile(infer, model, points, num)
+        print_profile(lambda: infer(model, points, num))
 
 
-def print_profile(infer, model, points, num):
-    """Kernel time by name for one call, and the device's busy share of
+def print_profile(call):
+    """Kernel time by name for one call(), and the device's busy share of
     the call's CUDA-event span."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -278,7 +387,7 @@ def print_profile(infer, model, points, num):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as p:
         start.record()
-        infer(model, points, num)
+        call()
         end.record()
         torch.cuda.synchronize()
     kernels = [e for e in p.key_averages()
@@ -292,7 +401,141 @@ def print_profile(infer, model, points, num):
               f"x{e.count:<4d} {e.key[:150]}")
 
 
-def main():
+def synthetic_gt(rng: np.random.Generator, config, batch: int,
+                 per_frame: int = 5):
+    """(gt_boxes (B, G, 7), gt_mask (B, G)): `per_frame` Car-sized boxes
+    per frame inside the grid, the other slots masked."""
+    obj = config.object
+    G = config.data.max_gt_boxes
+    gt = np.zeros((batch, G, 7), np.float32)
+    gt[:, :per_frame, 0] = rng.uniform(obj.x_min + 0.1 * obj.x_max,
+                                       0.9 * obj.x_max, (batch, per_frame))
+    gt[:, :per_frame, 1] = rng.uniform(0.9 * obj.y_min, 0.9 * obj.y_max,
+                                       (batch, per_frame))
+    gt[:, :per_frame, 2] = obj.anchor_z
+    gt[:, :per_frame, 3:6] = [obj.anchor_h, obj.anchor_w, obj.anchor_l]
+    gt[:, :per_frame, 3:6] *= rng.uniform(0.9, 1.1, (batch, per_frame, 3))
+    gt[:, :per_frame, 6] = rng.uniform(-math.pi / 2, math.pi / 2,
+                                       (batch, per_frame))
+    mask = np.zeros((batch, G), bool)
+    mask[:, :per_frame] = True
+    return gt, mask
+
+
+def train_batch(config, frames, batch: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    clouds = [frames[i % len(frames)] for i in range(batch)]
+    points, num = predict.stage_points(clouds, config, rng)
+    gt, mask = synthetic_gt(rng, config, batch)
+    return {"points": points, "num_points": num, "gt_boxes": gt,
+            "gt_mask": mask}
+
+
+def finite_metrics(metrics) -> dict:
+    out = {k: float(v) for k, v in metrics.items()}
+    check(all(math.isfinite(v) for v in out.values()),
+          f"non-finite train metrics {out}")
+    return out
+
+
+def phase_train(frames, device, card, seed):
+    """make_train_step at full Car width on one repeated batch."""
+    print("[5] train path: make_train_step, Car, bf16, B=2, "
+          f"{TRAIN_STEPS} steps on one batch")
+    config = get_config("Car")
+    batch = train_batch(config, frames, config.train.batch_size, seed)
+    state = create_train_state(config, build_model(config, seed=SEED),
+                               device=device)
+    step = make_train_step(config, device)
+    reset_launches()
+    losses = []
+    for i in range(TRAIN_STEPS):
+        state, metrics = step(state, batch)
+        m = finite_metrics(metrics)
+        losses.append(m["loss"])
+        print(f"  step {i}: " + ", ".join(f"{k} {v}" for k, v in m.items()))
+    torch.cuda.synchronize()
+    launches = {"vfe_fused": vfe_fused.launches,
+                "dense_build": dense_build.launches,
+                "run_copy": run_copy.launches}
+    print(f"  launches {launches}")
+    check(launches["run_copy"] > 0 and launches["dense_build"] > 0,
+          f"a kernel was not launched on the train path: {launches}")
+    check(losses[-1] < 0.9 * losses[0],
+          f"loss did not fall: first {losses[0]}, last {losses[-1]}")
+    del state
+    return launches
+
+
+def phase_train_small_reference(frames, device, seed):
+    """One f32 step at the tiny grid from the same weights and batch, on
+    the card and on the CPU."""
+    config = get_config("Car", **TINY)
+    batch = train_batch(config, frames[:2], 2, seed)
+    got = {}
+    for dev in ("cpu", device):
+        state = create_train_state(config, build_model(config, seed=SEED),
+                                   device=dev)
+        _, metrics = make_train_step(config, dev)(state, batch)
+        got[str(dev)] = finite_metrics(metrics)
+    card_m, cpu_m = got[str(device)], got["cpu"]
+    loss_rel = abs(card_m["loss"] / cpu_m["loss"] - 1)
+    norm_rel = abs(card_m["grad_norm"] / cpu_m["grad_norm"] - 1)
+    print(f"  tiny grid f32 train step, card vs CPU: loss {card_m['loss']} "
+          f"vs {cpu_m['loss']} (rel {loss_rel}), grad_norm "
+          f"{card_m['grad_norm']} vs {cpu_m['grad_norm']} (rel {norm_rel})")
+    check(loss_rel <= 1e-4, f"tiny train step: loss rel {loss_rel}")
+    # f32 convs sum in another order on the card, and a ReLU that flips
+    # at its boundary moves a gradient (measured 6.5e-6 on an H100)
+    check(norm_rel <= 1e-3, f"tiny train step: grad_norm rel {norm_rel}")
+
+
+def phase_train_timing(frames, device, card, seed):
+    config = get_config("Car")
+    for batch_size in (2, 8):
+        batch = train_batch(config, frames, batch_size, seed)
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in batch.items()}
+        state = create_train_state(config, build_model(config, seed=SEED),
+                                   device=device)
+        step = make_train_step(config, device)
+        for _ in range(3):
+            step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        per_stage = {s: [] for s in ("total",) + TRAIN_STAGES}
+        host = []
+        for _ in range(8):
+            marks = []
+            t0 = time.perf_counter()
+            step(state, batch, marks)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            for (_, a), (stage, b) in zip(marks, marks[1:]):
+                per_stage[stage].append(a.elapsed_time(b))
+            per_stage["total"].append(marks[0][1].elapsed_time(marks[-1][1]))
+        med = {s: statistics.median(v) for s, v in per_stage.items()}
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        print(f"  train B={batch_size}: step {med['total']} ms CUDA events, "
+              f"{statistics.median(host)} ms host, "
+              f"{batch_size * 1e3 / med['total']} frames/s, peak {peak} GiB "
+              f"[{card}]")
+        print("    " + ", ".join(f"{s} {med[s]}" for s in TRAIN_STAGES)
+              + " (ms)")
+        if batch_size == 8:
+            print_profile(lambda: step(state, batch))
+        del state, batch
+
+
+def parse_args(argv):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the synthetic GT boxes and point shuffles")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device")
     device = torch.device("cuda", 0)
@@ -307,9 +550,9 @@ def main():
           f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    for name, module in (("vfe_fused", vfe_fused),
-                         ("dense_build", dense_build)):
-        _build.load(name, module._ARGTYPES)
+    _build.build(KERNELS)
+    for module in (vfe_fused, dense_build, run_copy):
+        _build.load(module.__name__.rsplit(".", 1)[1], module._ARGTYPES)
     print(f"[2] built {sorted(_build.build_seconds)} in "
           f"{time.perf_counter() - t0} s ({_build.build_seconds})")
 
@@ -317,21 +560,34 @@ def main():
     check(len(frames) == 3, "expected 3 vendored frames")
     config = get_config("Car")
     model = make_model(config, device)
-    times, errs = phase_kernels(config, model, frames, device, card)
-    launches = phase_main_path(model, frames, device)
+    times, errs, bounds = phase_kernels(config, model, frames, device, card)
+    infer_launches = phase_main_path(model, frames, device)
     phase_small_reference(device)
     phase_timing(model, frames, device, card)
+    del model
+    train_launches = phase_train(frames, device, card, args.seed)
+    phase_train_small_reference(frames, device, args.seed)
+    phase_train_timing(frames, device, card, args.seed)
 
-    replaces = {"vfe_fused": "voxelnet_tpu/kernels/vfe_fused.py:52",
-                "dense_build": "voxelnet_tpu/kernels/dense_build.py:62"}
+    # each kernel's count on the path of the slice that brought it: the
+    # fused VFE runs only for inference, the others on the train step
+    launches = {"vfe_fused": infer_launches["vfe_fused"],
+                "dense_build": train_launches["dense_build"],
+                "run_copy": train_launches["run_copy"]}
     print(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"voxelnet_tpu_torch/csrc/{name}.cu",
-         "replaces": replaces[name], "launches": launches[name],
+         "replaces": REPLACES[name], "launches": launches[name],
+         "launches_by_path": {"inference": infer_launches[name],
+                              "train": train_launches[name]},
          "max_abs_err": errs[name], "ms": times[name][0],
-         "plain_ms": times[name][1]} for name in ("vfe_fused",
-                                                   "dense_build")]}))
+         "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": times[name][2],
+         **({"f32_ms": times["dense_build_f32"][0],
+             "f32_plain_ms": times["dense_build_f32"][1]}
+            if name == "dense_build" else {})}
+        for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

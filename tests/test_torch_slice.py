@@ -101,14 +101,23 @@ def test_stage_points_matches_jax_pipeline():
 
 
 def test_port_imports_no_jax():
-    """The package, its CLI and the chip smoke script load without JAX or
-    flax (conftest.py has imported JAX here, so check in a subprocess)."""
-    code = ("import sys, runpy\n"
+    """The package, its CLI, its train step and the chip smoke script load
+    without JAX or flax and without any module of the JAX package, under
+    its name or loaded from a file under voxelnet_tpu/ (conftest.py has
+    imported JAX here, so check in a subprocess)."""
+    code = ("import os, sys, runpy\n"
             "import voxelnet_tpu_torch.cli.predict\n"
             "import voxelnet_tpu_torch.convert\n"
+            "import voxelnet_tpu_torch.training.train_step\n"
             "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'jaxlib')]\n"
+            "ref = os.path.join(os.path.realpath('voxelnet_tpu'), '')\n"
+            "def from_ref(mod):\n"
+            "    f = getattr(mod, '__file__', None)\n"
+            "    return bool(f) and os.path.realpath(f).startswith(ref)\n"
+            "bad = [m for m, mod in list(sys.modules.items())\n"
+            "       if m.split('.')[0] in ('jax', 'flax', 'jaxlib',\n"
+            "                              'voxelnet_tpu')\n"
+            "       or from_ref(mod)]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

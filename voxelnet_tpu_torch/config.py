@@ -1,40 +1,262 @@
-"""Configuration for the PyTorch port: the JAX package's own config, loaded
-by file path, plus the port's backend resolver.
+"""Configuration for the PyTorch port: the port's own copy of the JAX
+package's config surface (`voxelnet_tpu/config.py`: the same frozen
+dataclasses, field names, defaults and per-class presets), plus the port's
+backend resolver.
 
-`voxelnet_tpu/config.py` imports only numpy (and yaml lazily), but importing
-it through its package would run `voxelnet_tpu/__init__.py`, which a future
-change may point at JAX modules. Loading the file by path keeps one config
-for both packages without that risk. Overrides go through
-`get_config(class_name, **overrides)`; `merge_from_file` needs pyyaml.
+The copy is held to the original by `tests/test_torch_train.py`
+(`to_dict()` equal for every preset and for override sets), so the two
+cannot drift apart. Overrides go through `get_config(class_name,
+**overrides)`; the copy has no YAML loading (the card's machine has no
+pyyaml).
 """
 
 from __future__ import annotations
 
-import importlib.util
-import os
-import sys
-from typing import NamedTuple
+import dataclasses
+from dataclasses import dataclass, field, replace
+from typing import Any, Mapping, NamedTuple
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "voxelnet_tpu", "config.py")
-_NAME = "voxelnet_tpu_torch._reference_config"
+# mean KITTI calibration matrices (per-frame calib files override them)
+_T_VELO_2_CAM = (
+    (7.49916597e-03, -9.99971248e-01, -8.65110297e-04, -6.71807577e-03),
+    (1.18652889e-02, 9.54520517e-04, -9.99910318e-01, -7.33152811e-02),
+    (9.99882833e-01, 7.49141178e-03, 1.18719929e-02, -2.78557062e-01),
+    (0.0, 0.0, 0.0, 1.0),
+)
+_R_RECT_0 = (
+    (0.99992475, 0.00975976, -0.00734152, 0.0),
+    (-0.0097913, 0.99994262, -0.00430371, 0.0),
+    (0.00729911, 0.0043753, 0.99996319, 0.0),
+    (0.0, 0.0, 0.0, 1.0),
+)
+_MATRIX_P2 = (
+    (719.787081, 0.0, 608.463003, 44.9538775),
+    (0.0, 719.787081, 174.545111, 0.1066855),
+    (0.0, 0.0, 1.0, 3.0106472e-03),
+    (0.0, 0.0, 0.0, 0.0),
+)
 
 
-def _load():
-    if _NAME in sys.modules:
-        return sys.modules[_NAME]
-    spec = importlib.util.spec_from_file_location(_NAME, _SRC)
-    mod = importlib.util.module_from_spec(spec)
-    # dataclasses resolves string annotations through sys.modules
-    sys.modules[_NAME] = mod
-    spec.loader.exec_module(mod)
-    return mod
+@dataclass(frozen=True)
+class SystemConfig:
+    num_workers: int = 4
+    mesh_axis_data: str = "data"
+    mesh_axis_model: str = "model"
+    num_data_shards: int = 1
+    num_model_shards: int = 1
+    num_dcn_shards: int = 1
 
 
-_cfg = _load()
-VoxelNetConfig = _cfg.VoxelNetConfig
-ObjectConfig = _cfg.ObjectConfig
-get_config = _cfg.get_config
+@dataclass(frozen=True)
+class DataConfig:
+    dir: str = "/data/kitti/MD_KITTI"
+    calib_dir: str = "/data/kitti/KITTI/training/calib"
+    max_points: int = 65536       # N bucket: points fed to the voxelizer
+    max_voxels: int = 16384       # K bucket: occupied voxels kept per frame
+    max_gt_boxes: int = 64        # padded ground-truth boxes per frame
+    shuffle_points: bool = True
+    crop_to_grid: bool = True     # drop out-of-grid points before the cap
+    # lowering knobs of the JAX package; the port maps every accepted
+    # value onto its one path (resolve_plan)
+    voxelizer_backend: str = "auto"
+    vfe_backend: str = "auto"
+    train_vfe_backend: str = "auto"
+    bev_fold: str = "auto"
+    middle_backend: str = "auto"
+    host_voxelizer: str = "auto"
+    scatter_hints: bool = True
+    cache_frames_mb: int = 512
+    dense_build: str = "auto"
+    fold_bn: str = "auto"         # eval-time BN fold: 'auto' | 'on' | 'off'
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 2
+    num_workers: int = 8
+    lr: float = 0.01
+    lr_scheduler_step: int = 150      # epoch at which LR drops 10x
+    alpha: float = 1.5                # positive-class CE weight
+    beta: float = 1.0                 # negative-class CE weight
+    sigma: float = 3.0                # smooth-L1 transition sharpness
+    num_epochs: int = 10
+    gradient_clip: float = 5.0
+    augment: bool = False
+    seed: int = 0
+    compute_dtype: str = "bfloat16"   # params stay f32
+    checkpoint_every_epochs: int = 1
+    keep_checkpoints: int = 1000
+    debug_nans: bool = False
+    host_targets: bool = False
+    host_voxelize: bool = False
+    upload_points: str = "i16q"       # 'f32' | 'i16q' (int16 wire format)
+    staging_depth: int = 3
+    yaw_encoding: str = "delta"       # 'delta' | 'sin'
+    staging_thread: bool = True
+    remat: str = "none"               # 'none' | 'seams' | 'full'
+
+
+@dataclass(frozen=True)
+class ValConfig:
+    batch_size: int = 2
+    num_workers: int = 4
+
+
+@dataclass(frozen=True)
+class ImageConfig:
+    width: int = 1242
+    height: int = 375
+    channels: int = 3
+
+
+@dataclass(frozen=True)
+class ObjectConfig:
+    """Per-class detection geometry."""
+
+    name: str = "Car"
+    z_min: float = -3.0
+    z_max: float = 1.0
+    y_min: float = -40.0
+    y_max: float = 40.0
+    x_min: float = 0.0
+    x_max: float = 70.4
+    z_voxel_size: float = 0.4
+    y_voxel_size: float = 0.2
+    x_voxel_size: float = 0.2
+    points_per_voxel: int = 35
+    feature_ratio: int = 2
+    anchor_l: float = 3.9
+    anchor_w: float = 1.6
+    anchor_h: float = 1.56
+    anchor_z: float = -1.0 - 1.56 / 2
+    rpn_pos_iou: float = 0.6
+    rpn_neg_iou: float = 0.45
+    anchors_per_cell: int = 2   # yaw 0 and 90 degrees
+
+    @property
+    def depth(self) -> int:
+        return int(round((self.z_max - self.z_min) / self.z_voxel_size))
+
+    @property
+    def height(self) -> int:
+        return int(round((self.y_max - self.y_min) / self.y_voxel_size))
+
+    @property
+    def width(self) -> int:
+        return int(round((self.x_max - self.x_min) / self.x_voxel_size))
+
+    @property
+    def feature_height(self) -> int:
+        return self.height // self.feature_ratio
+
+    @property
+    def feature_width(self) -> int:
+        return self.width // self.feature_ratio
+
+    @property
+    def grid_size(self) -> tuple[int, int, int]:
+        """(D, H, W) voxel grid extents in (z, y, x) order."""
+        return (self.depth, self.height, self.width)
+
+    @property
+    def voxel_size_zyx(self) -> tuple[float, float, float]:
+        return (self.z_voxel_size, self.y_voxel_size, self.x_voxel_size)
+
+    @property
+    def lidar_offset(self) -> tuple[float, float, float]:
+        """Shift applied to (x, y, z) so grid indices start at 0."""
+        return (-self.x_min, -self.y_min, -self.z_min)
+
+    @property
+    def num_anchors(self) -> int:
+        return self.feature_height * self.feature_width * self.anchors_per_cell
+
+
+OBJECT_PRESETS = {
+    "Car": ObjectConfig,
+    "Pedestrian": lambda: ObjectConfig(
+        name="Pedestrian", y_min=-20.0, y_max=20.0, x_min=0.0, x_max=48.0,
+        points_per_voxel=45, anchor_l=0.8, anchor_w=0.6, anchor_h=1.73,
+        anchor_z=-0.6 - 1.73 / 2, rpn_pos_iou=0.5, rpn_neg_iou=0.35),
+    "Cyclist": lambda: ObjectConfig(
+        name="Cyclist", y_min=-20.0, y_max=20.0, x_min=0.0, x_max=48.0,
+        points_per_voxel=45, anchor_l=1.76, anchor_w=0.6, anchor_h=1.73,
+        anchor_z=-0.6 - 1.73 / 2, rpn_pos_iou=0.5, rpn_neg_iou=0.35),
+}
+
+
+@dataclass(frozen=True)
+class RPNConfig:
+    nms_post_topk: int = 20
+    nms_thres: float = 0.1
+    score_thres: float = 0.96
+    nms_pre_topk: int = 256
+    nms_mode: str = "rotated"         # 'rotated' | 'standup'
+    block1_stride: int = 2
+
+
+@dataclass(frozen=True)
+class CalibConfig:
+    t_velo_2_cam: tuple = _T_VELO_2_CAM
+    r_rect_0: tuple = _R_RECT_0
+    matrix_p2: tuple = _MATRIX_P2
+
+
+@dataclass(frozen=True)
+class CompatConfig:
+    """Flags that reproduce the reference's documented quirks; each
+    defaults to the corrected semantics."""
+
+    buggy_anchor_standup: bool = False
+    buggy_smooth_l1: bool = False
+    iou_plus_one: bool = False
+    bn_over_padding: bool = False
+    raster_collision: bool = False
+
+
+@dataclass(frozen=True)
+class VoxelNetConfig:
+    system: SystemConfig = field(default_factory=SystemConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    val: ValConfig = field(default_factory=ValConfig)
+    image: ImageConfig = field(default_factory=ImageConfig)
+    object: ObjectConfig = field(default_factory=ObjectConfig)
+    rpn: RPNConfig = field(default_factory=RPNConfig)
+    calib: CalibConfig = field(default_factory=CalibConfig)
+    compat: CompatConfig = field(default_factory=CompatConfig)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def _merge_dataclass(obj, overrides: Mapping[str, Any]):
+    """Recursively apply a nested dict of overrides to a frozen dataclass."""
+    updates = {}
+    field_names = {f.name for f in dataclasses.fields(obj)}
+    for key, value in overrides.items():
+        if key not in field_names:
+            raise KeyError(
+                f"Unknown config key {key!r} for {type(obj).__name__}")
+        current = getattr(obj, key)
+        if dataclasses.is_dataclass(current) and isinstance(value, Mapping):
+            updates[key] = _merge_dataclass(current, value)
+        else:
+            updates[key] = value
+    return replace(obj, **updates)
+
+
+def get_config(class_name: str = "Car", **overrides) -> VoxelNetConfig:
+    """Config for one of the KITTI classes, with nested-dict overrides."""
+    if class_name not in OBJECT_PRESETS:
+        raise ValueError(
+            f"Unknown class {class_name!r}; expected one of "
+            f"{sorted(OBJECT_PRESETS)}")
+    cfg = VoxelNetConfig(object=OBJECT_PRESETS[class_name]())
+    if overrides:
+        cfg = _merge_dataclass(cfg, overrides)
+    return cfg
+
 
 MIDDLE_BACKENDS = ("auto", "conv3d", "folded2d", "tap2d", "sparse1",
                    "sparsebwd", "wpack", "wpack2")
@@ -42,12 +264,17 @@ BEV_FOLDS = ("auto", "transpose", "dsplit")
 VFE_BACKENDS = ("auto", "xla", "fused")
 DENSE_BUILDS = ("auto", "scatter", "pallas")
 FOLD_BN = ("auto", "on", "off")
+TRAIN_VFE_BACKENDS = ("auto", "xla", "planar")
+VOXELIZER_BACKENDS = ("auto", "xla", "gather", "pallas", "pallas_interpret",
+                      "planar", "planar_interpret")
+COMPUTE_DTYPES = ("bfloat16", "float32", "float64")
 
 
 class Plan(NamedTuple):
-    """What a config selects on the port's single inference path: the
-    Conv3D middle (nn.Conv3d), the depth->BEV fold as a reshape of NCDHW,
-    the fused VFE kernel and the streaming dense-grid kernel."""
+    """What a config selects on the port's single path: the run-copy
+    voxel table (train/eval steps), the fused VFE kernel (inference), the
+    streaming dense-grid kernel, the Conv3D middle (nn.Conv3d) and the
+    depth->BEV fold as a reshape of NCDHW."""
 
     fold_bn: bool    # data.fold_bn: 'off' keeps the separate BN ops
     dtype: str       # train.compute_dtype
@@ -58,17 +285,17 @@ def _check(name: str, value: str, allowed: tuple[str, ...]) -> None:
         raise ValueError(f"data.{name}={value!r} — expected one of {allowed}")
 
 
-def resolve_plan(config: VoxelNetConfig) -> Plan:
+def resolve_plan(config: VoxelNetConfig, train: bool = False) -> Plan:
     """Map every accepted value of the JAX package's lowering knobs onto
     the port's one path.
 
-    The JAX lowerings (`wpack2`, `folded2d`, `tap2d`, `dsplit`, ...) are
-    the same math in TPU-friendly layouts; the port runs NCDHW convs, where
-    the depth->BEV fold is a reshape. Raises where the port cannot give the
-    configured semantics: the reference's ghost-activation VFE
-    (`compat.bn_over_padding`, which the fused kernel does not implement,
-    as `models/voxelnet.py::resolve_vfe_backend` refuses it too) and any
-    mesh sharding (the port runs on one device).
+    The JAX lowerings (`wpack2`, `folded2d`, `dsplit`, the three Pallas
+    run-copy layouts, ...) are the same math in TPU-friendly layouts; the
+    port runs NCDHW convs, where the depth->BEV fold is a reshape, and one
+    run-copy kernel for every table layout. Raises where the port cannot
+    give the configured semantics: the reference's ghost-activation VFE
+    (`compat.bn_over_padding`), any mesh sharding (the port runs on one
+    device) and, for `train=True`, `train.remat` other than 'none'.
     """
     data = config.data
     _check("middle_backend", data.middle_backend, MIDDLE_BACKENDS)
@@ -76,10 +303,12 @@ def resolve_plan(config: VoxelNetConfig) -> Plan:
     _check("vfe_backend", data.vfe_backend, VFE_BACKENDS)
     _check("dense_build", data.dense_build, DENSE_BUILDS)
     _check("fold_bn", data.fold_bn, FOLD_BN)
+    _check("train_vfe_backend", data.train_vfe_backend, TRAIN_VFE_BACKENDS)
+    _check("voxelizer_backend", data.voxelizer_backend, VOXELIZER_BACKENDS)
     if config.compat.bn_over_padding:
         raise ValueError(
             "compat.bn_over_padding (reference ghost-activation VFE) is not "
-            "implemented by the fused VFE kernel")
+            "implemented by the port")
     sys_cfg = config.system
     shards = (sys_cfg.num_data_shards * sys_cfg.num_model_shards
               * sys_cfg.num_dcn_shards)
@@ -87,9 +316,13 @@ def resolve_plan(config: VoxelNetConfig) -> Plan:
         raise ValueError(
             f"the port runs on one device; got {shards} mesh shards "
             "(system.num_data_shards/num_model_shards/num_dcn_shards)")
-    if config.train.compute_dtype not in ("bfloat16", "float32"):
+    if config.train.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(
             f"train.compute_dtype={config.train.compute_dtype!r} — expected "
-            "'bfloat16' or 'float32'")
+            f"one of {COMPUTE_DTYPES}")
+    if train and config.train.remat != "none":
+        raise ValueError(
+            f"train.remat={config.train.remat!r}: the port's train step "
+            "runs without rematerialization ('none')")
     return Plan(fold_bn=data.fold_bn != "off",
                 dtype=config.train.compute_dtype)

@@ -1,7 +1,8 @@
 // Streaming dense-grid build: sorted voxel rows -> (B, n_cells, C) grid.
 //
 // Replaces the TPU kernel voxelnet_tpu/kernels/dense_build.py::_kernel
-// (entry dense_build_pallas, forward only). Same contract: per frame the
+// (entry dense_build_pallas, forward; its backward is a row gather, done
+// in torch by kernels/dense_build.py). Same contract: per frame the
 // linear cell ids are ascending, padding rows carry the id n_cells and
 // trail. Each block owns kRows consecutive cells of one frame: one warp
 // finds the block's slot range by a 32-way search of the sorted ids,
@@ -10,10 +11,15 @@
 // voxel's row where the cell is occupied, zeros elsewhere. No separate
 // zero fill, no read-modify-write.
 //
+// The kernel moves 16-byte chunks and never looks at the values, so one
+// kernel serves every element type; the launcher is a template over the
+// type (bf16 for inference, f32 for the f32 train step).
+//
 // What bounds it on an H100: device-memory writes. The Car grid is
-// 1,408,000 cells x 128 bf16 = 360 MB per frame; the voxel rows read
-// (<= 4 MB per frame) are noise beside it.
+// 1,408,000 cells x 128 bf16 = 360 MB per frame (720 MB in f32); the voxel
+// rows read (<= 4 MB per frame in bf16) are noise beside it.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -80,15 +86,30 @@ dense_build_kernel(const uint4* __restrict__ feat,  // (B, K, chunks)
   }
 }
 
-}  // namespace
-
-// feat (B, K, C) 2-byte elements, C * 2 a multiple of 16; ids (B, K) int32.
-extern "C" int dense_build_launch(const void* feat, const void* ids,
-                                  void* out, int B, int K, int n_cells,
-                                  int channels, void* stream) {
-  const int chunks = channels * 2 / 16;
+template <typename T>
+int launch(const void* feat, const void* ids, void* out, int B, int K,
+           int n_cells, int channels, void* stream) {
+  static_assert(16 % sizeof(T) == 0, "16-byte chunks of whole elements");
+  const int chunks = channels * (int)sizeof(T) / 16;
   dim3 grid((n_cells + kRows - 1) / kRows, B);
   dense_build_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint4*)feat, (const int*)ids, (uint4*)out, K, n_cells, chunks);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// feat (B, K, C) bf16, C * 2 a multiple of 16; ids (B, K) int32.
+extern "C" int dense_build_launch(const void* feat, const void* ids,
+                                  void* out, int B, int K, int n_cells,
+                                  int channels, void* stream) {
+  return launch<__nv_bfloat16>(feat, ids, out, B, K, n_cells, channels,
+                               stream);
+}
+
+// feat (B, K, C) f32, C * 4 a multiple of 16; ids (B, K) int32.
+extern "C" int dense_build_f32_launch(const void* feat, const void* ids,
+                                      void* out, int B, int K, int n_cells,
+                                      int channels, void* stream) {
+  return launch<float>(feat, ids, out, B, K, n_cells, channels, stream);
 }

@@ -39,28 +39,51 @@ def _nvcc() -> str:
     return found
 
 
-def load(name: str, argtypes: dict[str, list]) -> ctypes.CDLL:
-    """csrc/<name>.cu -> loaded library with `argtypes` declared for each
-    exported function (restype int: the launch's cudaError_t)."""
-    if name in _loaded:
-        return _loaded[name]
+def _paths(name: str) -> tuple[str, str]:
+    """-> (source, library path named by the source's and flags' hash)."""
     src = os.path.join(CSRC, f"{name}.cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    lib_path = os.path.join(BUILD_DIR,
-                            f"lib{name}-{digest.hexdigest()[:16]}.so")
-    if not os.path.exists(lib_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                              capture_output=True, text=True)
+    return src, os.path.join(BUILD_DIR,
+                             f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build(names) -> None:
+    """Compile every named source whose library is missing, one nvcc
+    process each, all started together; raise on the first failure."""
+    todo = [(n, *_paths(n)) for n in names]
+    todo = [(n, src, lib) for n, src, lib in todo if not os.path.exists(lib)]
+    if not todo:
+        return
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    running = []
+    for n, src, lib in todo:
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        running.append((n, src, lib, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for n, src, lib, tmp, proc in running:
+        out, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib_path)
-        build_seconds[name] = time.perf_counter() - t0
-    lib = ctypes.CDLL(lib_path)
+            failed.append(f"nvcc failed on {src}:\n{out}\n{err}")
+            continue
+        os.replace(tmp, lib)
+        build_seconds[n] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load(name: str, argtypes: dict[str, list]) -> ctypes.CDLL:
+    """csrc/<name>.cu -> loaded library with `argtypes` declared for each
+    exported function (restype int: the launch's cudaError_t). Builds the
+    library first if it is missing."""
+    if name in _loaded:
+        return _loaded[name]
+    build([name])
+    lib = ctypes.CDLL(_paths(name)[1])
     for fn, types in argtypes.items():
         getattr(lib, fn).argtypes = types
         getattr(lib, fn).restype = ctypes.c_int

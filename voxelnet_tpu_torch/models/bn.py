@@ -1,0 +1,61 @@
+"""BatchNorm with flax semantics on torch's BatchNorm modules.
+
+The port keeps `nn.BatchNorm1d/2d/3d` modules for their parameters and
+buffers (state_dict keys, convert.py, bn_fold.py and the eval path stay as
+they are) and computes the flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5,
+dtype=float32)` forward here, as the JAX package's modules use it:
+
+  * statistics in float32 (the input is cast down from f64 or up from
+    bf16), E[x] and E[x^2] - E[x]^2 clipped at 0 (flax's
+    `use_fast_variance`), over the stored rows only when a mask is given;
+  * normalisation with that biased variance, in the wider of the input's
+    type and f32: (x - mean) * (rsqrt(var + eps) * scale) + bias, returned
+    in float32;
+  * in train mode the running stats move as 0.9 * old + 0.1 * batch with
+    the biased variance (torch's own BN uses the unbiased one, and its
+    momentum 0.1 is flax's 0.9); in eval mode the running stats normalise.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+MOMENTUM = 0.9    # flax convention: the weight of the old running value
+EPS = 1e-5
+
+
+def flax_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+                    channel_dim: int,
+                    mask: torch.Tensor | None = None) -> torch.Tensor:
+    """x with features on `channel_dim`; mask broadcastable to x (True =
+    counted in the statistics), or None for all rows. Batch statistics and
+    a running-stat update when `bn.training`, running stats otherwise.
+    Returns float32."""
+    dim = channel_dim % x.dim()
+    axes = [d for d in range(x.dim()) if d != dim]
+    shape = [1] * x.dim()
+    shape[dim] = -1
+    if bn.training:
+        xs = x.to(torch.float32)
+        if mask is None:
+            mean = xs.mean(axes)
+            mean2 = (xs * xs).mean(axes)
+        else:
+            m = torch.broadcast_to(mask, xs.shape)
+            n = m.sum(axes).to(torch.float32)
+            zero = xs.new_zeros(())
+            mean = torch.where(m, xs, zero).sum(axes) / n
+            mean2 = torch.where(m, xs * xs, zero).sum(axes) / n
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        with torch.no_grad():
+            bn.running_mean.copy_(MOMENTUM * bn.running_mean
+                                  + (1 - MOMENTUM) * mean)
+            bn.running_var.copy_(MOMENTUM * bn.running_var
+                                 + (1 - MOMENTUM) * var)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    wide = torch.promote_types(x.dtype, torch.float32)
+    mul = torch.rsqrt(var + EPS) * bn.weight
+    y = (x.to(wide) - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+    return y.to(torch.float32)

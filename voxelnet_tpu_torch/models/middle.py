@@ -2,12 +2,21 @@
 `voxelnet_tpu/models/middle.py`: three Conv3D+BN+ReLU blocks collapsing the
 depth axis (Car: 10 -> 5 -> 3 -> 2), then the c-major depth->BEV fold
 (bev_channel = c * D' + d). Module names follow the flax tree so the
-weight bridge (convert.py) maps paths one to one."""
+weight bridge (convert.py) maps paths one to one.
+
+Conv weights are cast to the input's dtype at use (f32 master weights,
+as flax's `dtype`/`param_dtype`; a no-op on the inference copy, whose
+weights `prepare_for_inference` cast once). Train mode normalises with
+batch statistics in f32 (models/bn.py); eval mode with torch's BN on the
+running stats, or not at all once folded."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.nn import functional as F
+
+from voxelnet_tpu_torch.models.bn import flax_batch_norm
 
 # (cout, depth stride, depth pad) per block
 BLOCKS = ((64, 2, 1), (64, 1, 0), (64, 2, 1))
@@ -27,10 +36,20 @@ class ConvBlock3D(nn.Module):
         self.BatchNorm_0 = nn.BatchNorm3d(cout, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.Conv_0(x)
-        if self.BatchNorm_0 is not None:   # None once folded (bn_fold.py)
-            y = self.BatchNorm_0(y.float())
-        return torch.relu(y).to(x.dtype)
+        conv = self.Conv_0
+        y = F.conv3d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                     conv.stride, conv.padding)
+        return bn_relu(self.BatchNorm_0, y, x.dtype)
+
+
+def bn_relu(bn, y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """BN (flax batch statistics in train mode; torch's eval BN, or none
+    once folded by bn_fold.py) in f32, then ReLU, in `dtype`."""
+    if bn is not None and bn.training:
+        y = flax_batch_norm(bn, y, 1)
+    elif bn is not None:
+        y = bn(y.float())
+    return torch.relu(y).to(dtype)
 
 
 class MiddleLayers(nn.Module):

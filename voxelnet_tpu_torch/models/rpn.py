@@ -2,12 +2,16 @@
 three conv blocks (5 + 6 + 6 convs), each deconvolved to a common
 (H/2, W/2) map, concatenated to 768 channels, then 1x1 cls/reg heads that
 return f32 logits. flax 'SAME' (k3 s1) is padding 1, 'VALID' (k2 s2, k4 s4)
-padding 0. Module names follow the flax tree."""
+padding 0. Module names follow the flax tree. Weights are cast at use and
+BN runs as in models/middle.py (`bn_relu`)."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.nn import functional as F
+
+from voxelnet_tpu_torch.models.middle import bn_relu
 
 
 class ConvBNReLU(nn.Module):
@@ -17,10 +21,7 @@ class ConvBNReLU(nn.Module):
         self.BatchNorm_0 = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.Conv_0(x)
-        if self.BatchNorm_0 is not None:   # None once folded (bn_fold.py)
-            y = self.BatchNorm_0(y.float())
-        return torch.relu(y).to(x.dtype)
+        return bn_relu(self.BatchNorm_0, _conv(self.Conv_0, x), x.dtype)
 
 
 class DeconvBNReLU(nn.Module):
@@ -31,10 +32,16 @@ class DeconvBNReLU(nn.Module):
         self.BatchNorm_0 = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.ConvTranspose_0(x)
-        if self.BatchNorm_0 is not None:
-            y = self.BatchNorm_0(y.float())
-        return torch.relu(y).to(x.dtype)
+        conv = self.ConvTranspose_0
+        y = F.conv_transpose2d(x, conv.weight.to(x.dtype),
+                               conv.bias.to(x.dtype), conv.stride,
+                               conv.padding)
+        return bn_relu(self.BatchNorm_0, y, x.dtype)
+
+
+def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                    conv.stride, conv.padding)
 
 
 class RPN(nn.Module):
@@ -67,6 +74,6 @@ class RPN(nn.Module):
         x = self._convs(x, 11, 17)
         up3 = self.DeconvBNReLU_2(x)
         feats = torch.cat([up3, up2, up1], dim=1)
-        cls = self.prob_conv(feats).permute(0, 2, 3, 1).float()
-        reg = self.reg_conv(feats).permute(0, 2, 3, 1).float()
+        cls = _conv(self.prob_conv, feats).permute(0, 2, 3, 1).float()
+        reg = _conv(self.reg_conv, feats).permute(0, 2, 3, 1).float()
         return cls, reg

@@ -1,11 +1,12 @@
 """Sparse voxel features -> dense (B, D, H, W, C) grid, as
-`voxelnet_tpu/models/scatter.py::scatter_to_dense_streamed`."""
+`voxelnet_tpu/models/scatter.py::scatter_to_dense_streamed`, with a
+gradient with respect to the voxel features."""
 
 from __future__ import annotations
 
 import torch
 
-from voxelnet_tpu_torch.kernels.dense_build import dense_build
+from voxelnet_tpu_torch.kernels.dense_build import dense_build_autograd
 
 
 def scatter_to_dense_streamed(voxel_features: torch.Tensor,
@@ -18,6 +19,6 @@ def scatter_to_dense_streamed(voxel_features: torch.Tensor,
     n = D * H * W
     linear = (coords[..., 0] * H + coords[..., 1]) * W + coords[..., 2]
     ids = torch.where(counts > 0, linear, n).to(torch.int32)
-    dense = dense_build(voxel_features, ids, n)
+    dense = dense_build_autograd(voxel_features, ids, n)
     b, _, c = voxel_features.shape
     return dense.view(b, D, H, W, c)

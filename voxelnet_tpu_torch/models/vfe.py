@@ -1,6 +1,12 @@
-"""Voxel Feature Encoding, eval mode: the parameters of
+"""Voxel Feature Encoding: the parameters of
 `voxelnet_tpu/models/vfe.py::FeatureLearningNet` (vfe1 7->32, vfe2 32->128,
-each a Dense `fcn` + BatchNorm `bn`), run by the fused kernel."""
+each a Dense `fcn` + BatchNorm `bn`) and its two forwards:
+
+  * `forward(prep)`, inference in eval mode: the fused kernel
+    (kernels/vfe_fused.py) straight from the sorted point stream;
+  * `table(features, counts)`, either mode: the flax module's math on the
+    explicit (B, K, T, 7) table, as the train and eval steps use it.
+"""
 
 from __future__ import annotations
 
@@ -8,21 +14,42 @@ import torch
 from torch import nn
 
 from voxelnet_tpu_torch.kernels.vfe_fused import fold_layer, vfe_fused
+from voxelnet_tpu_torch.models.bn import flax_batch_norm
 from voxelnet_tpu_torch.ops.voxelize import Prepared
+
+# masked-max fill; cast to the compute dtype before use, as the JAX
+# module does (-1e9 in bf16 is -999817216)
+NEG_FILL = -1e9
+
+
+def _masked_max(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Max over the point axis (2) of the rows where mask (B, K, T, 1)."""
+    fill = torch.tensor(NEG_FILL, dtype=x.dtype, device=x.device)
+    return torch.where(mask, x, fill).amax(dim=2, keepdim=True)
 
 
 class VFELayer(nn.Module):
-    """Dense(cin -> cout/2) + BN; ReLU, the masked max and the concat live
-    in the kernel."""
+    """Dense(cin -> cout/2), ReLU, BN, masked max, concat."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.fcn = nn.Linear(cin, cout // 2)
         self.bn = nn.BatchNorm1d(cout // 2, eps=1e-5, momentum=0.1)
 
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """x (B, K, T, cin), mask (B, K, T, 1) bool -> (B, K, T, cout) in
+        x's dtype. The Dense runs in x's dtype on f32 master weights cast
+        at use; the BN's statistics cover the stored points only."""
+        dtype = x.dtype
+        y = torch.relu(nn.functional.linear(x, self.fcn.weight.to(dtype),
+                                            self.fcn.bias.to(dtype)))
+        y = flax_batch_norm(self.bn, y, -1, mask).to(dtype)
+        agg = _masked_max(y, mask).expand_as(y)
+        return torch.cat([y, agg], dim=-1) * mask.to(dtype)
+
 
 class FeatureLearningNet(nn.Module):
-    """Prepared (sorted) points -> voxelwise features (B, K, 128) bf16."""
+    """Voxel points -> voxelwise features (B, K, 128)."""
 
     def __init__(self, points_per_voxel: int):
         super().__init__()
@@ -31,11 +58,25 @@ class FeatureLearningNet(nn.Module):
         self.vfe2 = VFELayer(32, 128)
 
     def forward(self, prep: Prepared) -> torch.Tensor:
+        """Prepared (sorted) points -> (B, K, 128) bf16 through the fused
+        kernel, BN folded from the running stats (eval mode only)."""
         if self.training:
             raise NotImplementedError(
-                "FeatureLearningNet runs in eval mode only (masked-BN "
-                "training is not ported)")
+                "the fused VFE kernel runs in eval mode only; train mode "
+                "runs FeatureLearningNet.table on the voxel table")
         w1, a1 = fold_layer(self.vfe1.fcn, self.vfe1.bn, 8)
         w2, a2 = fold_layer(self.vfe2.fcn, self.vfe2.bn, 32)
         return vfe_fused(prep.sorted_planar, prep.run_start, prep.num_voxels,
                          prep.counts, w1, a1, w2, a2, self.points_per_voxel)
+
+    def table(self, features: torch.Tensor, counts: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+        """features (B, K, T, 7) f32, counts (B, K) -> (B, K, 128) in
+        `dtype` (the compute dtype), zero for empty voxels."""
+        T = features.shape[2]
+        mask = (torch.arange(T, device=features.device)
+                < counts[..., None])[..., None]
+        x = self.vfe1(features.to(dtype), mask)
+        x = self.vfe2(x, mask)
+        voxelwise = _masked_max(x, mask)[:, :, 0]
+        return voxelwise * (counts > 0)[..., None].to(dtype)

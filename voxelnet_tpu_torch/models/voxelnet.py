@@ -4,7 +4,9 @@ Counterpart of `voxelnet_tpu/models/voxelnet.py` (`VoxelNet`,
 `make_inference_fn`). Inference runs, in order: sort + run analysis
 (ops/voxelize.prepare), the fused voxel-table + VFE kernel, the streaming
 dense-grid kernel, the Conv3D middle stack, the RPN, sigmoid + anchor
-decode, and score gate + top-k + rotated-BEV NMS.
+decode, and score gate + top-k + rotated-BEV NMS. `VoxelNet.forward` is
+the flax module's `__call__` on an explicit voxel table, in whatever mode
+the module is in: the train and eval steps (training/train_step.py) run it.
 """
 
 from __future__ import annotations
@@ -38,10 +40,24 @@ class VoxelNet(nn.Module):
     def __init__(self, config: VoxelNetConfig):
         super().__init__()
         obj = config.object
+        self.grid_dzyx = tuple(obj.grid_size)
+        self.compute_dtype = getattr(torch, config.train.compute_dtype)
         self.feature_net = FeatureLearningNet(obj.points_per_voxel)
         self.middle = MiddleLayers(cin=128)
         self.rpn = RPN(cin=64 * depth_out(obj.depth),
                        block1_stride=config.rpn.block1_stride)
+
+    def forward(self, features: torch.Tensor, coords: torch.Tensor,
+                counts: torch.Tensor):
+        """features (B, K, T, 7) f32, coords (B, K, 3), counts (B, K) in
+        the voxelizer's order -> (cls logits (B, H', W', 2) f32, reg
+        (B, H', W', 14) f32): table VFE, dense grid (kernel forward, row
+        gather backward), Conv3D middle, RPN, in the compute dtype."""
+        voxelwise = self.feature_net.table(features, counts,
+                                           self.compute_dtype)
+        dense = scatter_to_dense_streamed(voxelwise, coords, counts,
+                                          self.grid_dzyx)
+        return self.rpn(self.middle(dense))
 
 
 class Detections(NamedTuple):
@@ -75,6 +91,19 @@ def prepare_for_inference(model: VoxelNet, fold_bn: bool,
                 memory_format=fmt)
             m.bias.data = m.bias.data.to(dtype)
     return net
+
+
+def mark(marks: list | None, stage: str, device: torch.device) -> None:
+    """Append (stage, CUDA event recorded now) to `marks` on a CUDA
+    device, (stage, host time) elsewhere; nothing when marks is None."""
+    if marks is None:
+        return
+    if device.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((stage, ev))
+    else:
+        marks.append((stage, time.perf_counter()))
 
 
 def _versions(model: nn.Module) -> tuple[int, ...]:
@@ -113,16 +142,6 @@ def make_inference_fn(config: VoxelNetConfig,
                                                    dtype))
         return cache["net"]
 
-    def mark(marks, stage):
-        if marks is None:
-            return
-        if device.type == "cuda":
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append((stage, ev))
-        else:
-            marks.append((stage, time.perf_counter()))
-
     def fn(model: VoxelNet, points, num_points, marks=None) -> Detections:
         with torch.no_grad():
             net = prepared(model)
@@ -133,30 +152,30 @@ def make_inference_fn(config: VoxelNetConfig,
         points = torch.as_tensor(points, dtype=torch.float32, device=device)
         num_points = torch.as_tensor(num_points, dtype=torch.int32,
                                      device=device)
-        mark(marks, "start")
+        mark(marks, "start", device)
         prep = prepare(points, num_points, spec, max_voxels)
-        mark(marks, "prepare")
+        mark(marks, "prepare", device)
         voxelwise = net.feature_net(prep)
-        mark(marks, "vfe")
+        mark(marks, "vfe", device)
         dense = scatter_to_dense_streamed(voxelwise, prep.coords,
                                           prep.counts, obj.grid_size)
-        mark(marks, "dense")
+        mark(marks, "dense", device)
         bev = net.middle(dense.to(dtype))
-        mark(marks, "middle")
+        mark(marks, "middle", device)
         cls_logits, reg = net.rpn(bev)
-        mark(marks, "rpn")
+        mark(marks, "rpn", device)
         b = cls_logits.shape[0]
         probs = torch.sigmoid(cls_logits).reshape(b, -1)
         boxes = box_coding.decode_deltas(
             reg.reshape(b, -1, 7), anchors, obj.anchor_h,
             yaw_mode=config.train.yaw_encoding)
-        mark(marks, "decode")
+        mark(marks, "decode", device)
         res = nms.nms_bev(boxes, probs, score_thresh=rpn_cfg.score_thres,
                           iou_thresh=rpn_cfg.nms_thres,
                           pre_topk=rpn_cfg.nms_pre_topk,
                           post_topk=rpn_cfg.nms_post_topk,
                           mode=rpn_cfg.nms_mode)
-        mark(marks, "nms")
+        mark(marks, "nms", device)
         return Detections(res.boxes, res.scores, res.valid)
 
     return fn

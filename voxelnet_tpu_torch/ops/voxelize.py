@@ -1,11 +1,13 @@
-"""Voxelization front end: host staging in numpy and the sort + run
-analysis in torch.
+"""Voxelization: host staging in numpy, the sort + run analysis in torch,
+and the explicit (B, K, T, 7) voxel table of the train and eval steps.
 
 Counterpart of `voxelnet_tpu/ops/voxelize.py` (`VoxelGridSpec`,
-`in_grid_mask`, `pad_points`, `_sort_stage`, `_pallas_prepare` with the
-planar layout, `_decode_zyx`). The integer outputs match the JAX function
-exactly: the same f32 shift + divide + floor binning, the same stable sort
-by linear voxel id, the same run-start table.
+`in_grid_mask`, `pad_points`, `POINT_I16_SCALES`/`dequantize_points_i16`,
+`_sort_stage`, `_pallas_prepare` with the planar layout, `_decode_zyx`,
+`_finalize`, and `voxelize_batch_jax` on the run-copy table). The
+integer outputs match the JAX function exactly: the same f32 shift +
+divide + floor binning, the same stable sort by linear voxel id, the same
+run-start table.
 """
 
 from __future__ import annotations
@@ -14,6 +16,12 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from voxelnet_tpu_torch.kernels.run_copy import run_copy
+
+# wire-format scales of train.upload_points='i16q': xyz at 5 mm,
+# reflectance at 1/32768
+POINT_I16_SCALES = (0.005, 0.005, 0.005, 1.0 / 32768.0)
 
 
 class VoxelGridSpec(NamedTuple):
@@ -41,6 +49,26 @@ class Prepared(NamedTuple):
     coords: torch.Tensor          # (B, K, 3) i32 zyx; (0, 0, 0) = empty
     num_voxels: torch.Tensor      # (B,) i32, occupied voxels kept (<= K)
     num_voxels_raw: torch.Tensor  # (B,) i32, occupied voxels before the cap
+
+
+class Voxels(NamedTuple):
+    """Batched voxel table (`voxelize_table`)."""
+
+    features: torch.Tensor        # (B, K, T, 7) f32: x, y, z, r, offsets
+    coords: torch.Tensor          # (B, K, 3) i32 zyx; (0, 0, 0) = empty
+    counts: torch.Tensor          # (B, K) i32, stored points (<= T)
+    num_voxels: torch.Tensor      # (B,) i32, occupied voxels kept (<= K)
+    num_voxels_raw: torch.Tensor  # (B,) i32, occupied voxels before the cap
+
+
+def dequantize_points_i16(points: torch.Tensor) -> torch.Tensor:
+    """int16 wire-format points -> f32 (x POINT_I16_SCALES); any other
+    dtype passes through."""
+    if points.dtype != torch.int16:
+        return points
+    scales = torch.tensor(POINT_I16_SCALES, dtype=torch.float32,
+                          device=points.device)
+    return points.to(torch.float32) * scales
 
 
 def in_grid_mask(points: np.ndarray, spec: VoxelGridSpec) -> np.ndarray:
@@ -149,3 +177,28 @@ def prepare(points: torch.Tensor, num_points: torch.Tensor,
     return Prepared(sorted_planar, run_start, counts.to(torch.int32),
                     coords.to(torch.int32), num_voxels.to(torch.int32),
                     num_voxels_raw.to(torch.int32))
+
+
+def finalize(table: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Raw (B, K, T, 4) table -> (B, K, T, 7) features: rows at or past a
+    voxel's count zeroed, then centroid offsets over the stored points
+    (the sum divided by max(count, 1))."""
+    T = table.shape[-2]
+    mask = (torch.arange(T, device=table.device)
+            < counts[..., None])[..., None].to(torch.float32)
+    table = table * mask
+    denom = torch.clamp(counts, min=1).to(torch.float32)[..., None, None]
+    centroid = table[..., :3].sum(dim=-2, keepdim=True) / denom
+    offsets = (table[..., :3] - centroid) * mask
+    return torch.cat([table, offsets], dim=-1)
+
+
+def voxelize_table(points: torch.Tensor, num_points: torch.Tensor,
+                   spec: VoxelGridSpec, max_voxels: int) -> Voxels:
+    """(B, N, 4) padded points + (B,) counts -> `Voxels`: `prepare`, the
+    run-copy table (kernels/run_copy.py), `finalize`."""
+    prep = prepare(points, num_points, spec, max_voxels)
+    table = run_copy(prep.sorted_planar, prep.run_start,
+                     spec.max_points_per_voxel)
+    return Voxels(finalize(table, prep.counts), prep.coords, prep.counts,
+                  prep.num_voxels, prep.num_voxels_raw)

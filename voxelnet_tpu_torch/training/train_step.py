@@ -1,0 +1,180 @@
+"""Train and eval steps, as `voxelnet_tpu/training/train_step.py`
+(`make_train_step`, `make_eval_step`).
+
+One train step does, on one device: voxelize (sort + run analysis, the
+run-copy table kernel, finalize), the VFE on the table in train mode with
+mask-aware flax BatchNorm, the dense grid (kernel forward, row-gather
+backward), the Conv3D middle and RPN in train mode, target assignment on
+the device, the RPN loss, backward, clip by global norm and an SGD step.
+It returns the JAX step's metrics. The model's parameters and BN running
+stats are updated in place (the JAX step returns new arrays).
+
+A batch is a dict of numpy arrays or tensors with the JAX step's keys:
+`points` (B, N, 4) f32 or int16 wire format with `num_points` (B,), or
+host voxel buffers `voxel_features`/`voxel_coords`/`voxel_counts`; and
+`gt_boxes` (B, G, 7) with `gt_mask` (B, G), or host target maps
+`target_pos`/`target_neg`/`target_reg` (ops/targets.TargetPrecomputer).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from voxelnet_tpu_torch.config import VoxelNetConfig, resolve_plan
+from voxelnet_tpu_torch.models.voxelnet import VoxelNet, build_model, mark
+from voxelnet_tpu_torch.ops import losses, targets as targets_ops
+from voxelnet_tpu_torch.ops.anchors import anchors_flat
+from voxelnet_tpu_torch.ops.voxelize import (VoxelGridSpec,
+                                             dequantize_points_i16,
+                                             voxelize_table)
+from voxelnet_tpu_torch.training.optim import ClippedSGD, OptState
+
+
+TRAIN_STAGES = ("voxelize", "targets", "forward", "loss", "backward",
+                "update")
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    model: VoxelNet
+    opt_state: OptState
+
+
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch sees no CUDA "
+                           "device")
+    return device
+
+
+def create_train_state(config: VoxelNetConfig, model: VoxelNet | None = None,
+                       seed: int = 0, device="cuda") -> TrainState:
+    """A state at step 0: `model` (or a random init from `seed`, see
+    models/init.py) moved to `device`, and a fresh optimizer state."""
+    model = build_model(config, seed=seed) if model is None else model
+    return TrainState(step=0, model=model.to(_device(device)),
+                      opt_state=OptState(count=0))
+
+
+class _Inputs:
+    """Turns a batch into device tensors: the voxel table and the target
+    maps."""
+
+    def __init__(self, config: VoxelNetConfig, device: torch.device):
+        obj = config.object
+        self.config = config
+        self.device = device
+        self.spec = VoxelGridSpec.from_object_config(obj)
+        self.anchors = torch.from_numpy(anchors_flat(obj)).to(device)
+        self.standup = torch.from_numpy(targets_ops.anchor_standup_np(
+            obj, buggy=config.compat.buggy_anchor_standup)).to(device)
+
+    def tensor(self, batch, key, dtype=None):
+        return torch.as_tensor(batch[key], dtype=dtype, device=self.device)
+
+    def voxels(self, batch):
+        """-> (features, coords, counts, voxels_clipped or None)."""
+        if "voxel_features" in batch:
+            return (self.tensor(batch, "voxel_features", torch.float32),
+                    self.tensor(batch, "voxel_coords", torch.int32),
+                    self.tensor(batch, "voxel_counts", torch.int32), None)
+        max_voxels = self.config.data.max_voxels
+        vox = voxelize_table(
+            dequantize_points_i16(self.tensor(batch, "points")),
+            self.tensor(batch, "num_points", torch.int32), self.spec,
+            max_voxels)
+        clipped = (vox.num_voxels_raw > max_voxels).sum()
+        return vox.features, vox.coords, vox.counts, clipped
+
+    def targets(self, batch):
+        """-> (pos, neg, reg) target maps."""
+        if "target_pos" in batch:
+            return tuple(self.tensor(batch, k, torch.float32) for k in
+                         ("target_pos", "target_neg", "target_reg"))
+        obj = self.config.object
+        assign = targets_ops.assign_targets(
+            self.tensor(batch, "gt_boxes", torch.float32),
+            self.tensor(batch, "gt_mask", torch.bool), self.anchors,
+            self.standup, pos_iou=obj.rpn_pos_iou, neg_iou=obj.rpn_neg_iou,
+            anchor_h=obj.anchor_h,
+            iou_plus_one=self.config.compat.iou_plus_one,
+            yaw_mode=self.config.train.yaw_encoding)
+        return targets_ops.targets_to_maps(
+            assign, (obj.feature_height, obj.feature_width))
+
+
+def _loss(config: VoxelNetConfig, cls_logits, reg, maps) -> losses.RPNLoss:
+    tcfg = config.train
+    return losses.rpn_loss(cls_logits, reg, *maps, alpha=tcfg.alpha,
+                           beta=tcfg.beta, sigma=tcfg.sigma, from_logits=True,
+                           buggy_smooth_l1=config.compat.buggy_smooth_l1)
+
+
+def make_train_step(config: VoxelNetConfig, device="cuda",
+                    steps_per_epoch: int = 1):
+    """-> fn(state, batch, marks=None) -> (state, metrics): one SGD step
+    on `device` (the card unless the caller asks for "cpu"). Metrics are
+    0-d tensors: loss, cls_loss, reg_loss, cls_pos_loss, cls_neg_loss,
+    grad_norm, and voxels_clipped (frames whose occupied voxels exceed
+    max_voxels) when the step voxelizes. `marks`: a list that receives
+    (stage, CUDA event or host time) at the start and after each stage of
+    TRAIN_STAGES."""
+    resolve_plan(config, train=True)
+    device = _device(device)
+    inputs = _Inputs(config, device)
+    optimizer = ClippedSGD(config, steps_per_epoch)
+
+    def step(state: TrainState, batch,
+             marks: list | None = None) -> tuple[TrainState, dict]:
+        model = state.model.train()
+        mark(marks, "start", device)
+        features, coords, counts, clipped = inputs.voxels(batch)
+        mark(marks, "voxelize", device)
+        maps = inputs.targets(batch)
+        mark(marks, "targets", device)
+        cls_logits, reg = model(features, coords, counts)
+        mark(marks, "forward", device)
+        out = _loss(config, cls_logits, reg, maps)
+        mark(marks, "loss", device)
+        params = list(model.parameters())
+        grads = torch.autograd.grad(out.loss, params)
+        mark(marks, "backward", device)
+        grad_norm, state.opt_state = optimizer.apply_(params, grads,
+                                                      state.opt_state)
+        mark(marks, "update", device)
+        state.step += 1
+        metrics = {name: getattr(out, name).detach() for name in
+                   ("loss", "cls_loss", "reg_loss", "cls_pos_loss",
+                    "cls_neg_loss")}
+        metrics["grad_norm"] = grad_norm
+        if clipped is not None:
+            metrics["voxels_clipped"] = clipped
+        return state, metrics
+
+    return step
+
+
+def make_eval_step(config: VoxelNetConfig, device="cuda"):
+    """-> fn(state, batch) -> (metrics {loss, cls_loss, reg_loss},
+    cls probabilities (B, H', W', 2), reg (B, H', W', 14)), the model in
+    eval mode (running BN stats), no gradients."""
+    resolve_plan(config)
+    device = _device(device)
+    inputs = _Inputs(config, device)
+
+    @torch.no_grad()
+    def step(state: TrainState, batch):
+        model = state.model.eval()
+        features, coords, counts, _ = inputs.voxels(batch)
+        maps = inputs.targets(batch)
+        cls_logits, reg = model(features, coords, counts)
+        out = _loss(config, cls_logits, reg, maps)
+        metrics = {"loss": out.loss, "cls_loss": out.cls_loss,
+                   "reg_loss": out.reg_loss}
+        return metrics, torch.sigmoid(cls_logits), reg
+
+    return step
