@@ -68,10 +68,11 @@ REPLACES = {
     "run_copy": "voxelnet_tpu/kernels/voxelize_pallas.py:189 "
                 "(_planar_t_kernel), :79 (_planar_kernel), :48 (_kernel)",
 }
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, f32 rate outside the tensor
-# cores (the VFE kernel's arithmetic is f32 FMAs on bf16-rounded inputs)
+# NVIDIA H100 SXM data sheet, dense rates: HBM3 bandwidth, and the peak
+# operation rate by the type of the operands (bf16 on the tensor cores, f32
+# outside them)
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
+PEAK_FLOP_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # MACs per stored point of the VFE stack: 7->16 and 32->64
 VFE_FLOP_PER_POINT = 2 * (7 * 16 + 32 * 64)
 TRAIN_STEPS = 8
@@ -114,11 +115,13 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: float, flops: float = 0.0) -> tuple[float, str]:
+def bound(n_bytes: float, flops: float = 0.0,
+          dtype: torch.dtype = torch.float32) -> tuple[float, str]:
     """Least time in ms for the work on an H100 SXM, and what bounds it:
-    the bytes over HBM bandwidth or the f32 operations over the f32 rate."""
+    the bytes over HBM bandwidth or the operations, on operands of
+    `dtype`, over the peak rate for that type."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / PEAK_FLOP_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -262,10 +265,12 @@ def phase_kernels(config, model, frames, device, card):
     B, K = 2, prep.run_start.shape[1]
     weights = nbytes(*w)
     bounds = {
+        # the VFE's products take bf16 operands and accumulate in f32, as
+        # the TPU kernel's MXU dots do: the tensor cores' bf16 rate
         "vfe_fused": bound(
             nbytes(prep.sorted_planar, prep.run_start, prep.num_voxels,
                    prep.counts) + weights + B * K * 128 * 2,
-            VFE_FLOP_PER_POINT * float(prep.counts.sum())),
+            VFE_FLOP_PER_POINT * float(prep.counts.sum()), torch.bfloat16),
         "dense_build": bound(nbytes(got, ids) + B * n * 128 * 2),
         "run_copy": bound(nbytes(prep.sorted_planar, prep.run_start)
                           + B * K * T * 16),
