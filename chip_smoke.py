@@ -11,8 +11,12 @@ Phases, each fatal on failure:
      vendored frames): the fused VFE (>= 99.9% of elements bit-equal, the
      rest within 2**-7 relative), the dense-grid build in bf16 and f32 and
      its gradient (bit-equal), the run-copy voxel table (bit-equal, also on
-     a crowded frame), with CUDA-event medians of each, of its plain
-     version and, for the run-copy, of one torch.gather call;
+     a crowded frame); the time of each, of its plain version and, for
+     the run-copy, of one torch.gather call, as the median over 5 windows
+     of one CUDA-event pair around 50 back-to-back calls, beside the
+     device time of the kernels those calls launch (torch.profiler); the
+     fused VFE also at the inference B=8 batch, and the dense grid's
+     backward gather alone;
   4. the inference main path through cli.predict on the 3 vendored frames
      at full Car width (grid 10x400x352, max_points 65536, max_voxels
      16384, bf16, random init from a seed with random BN statistics), at
@@ -76,6 +80,13 @@ PEAK_FLOP_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # MACs per stored point of the VFE stack: 7->16 and 32->64
 VFE_FLOP_PER_POINT = 2 * (7 * 16 + 32 * 64)
 TRAIN_STEPS = 8
+# the PR whose design each kernel runs
+DESIGN_PR = {"vfe_fused": 1, "dense_build": 1, "run_copy": 2}
+# timed shapes beside each kernel's Car B=2 one: the fused VFE at the
+# inference B=8 batch; the dense grid in f32 (train) and its backward (a
+# torch gather, no kernel of the port)
+EXTRA_SHAPES = {"vfe_fused": ("vfe_fused_b8",),
+                "dense_build": ("dense_build_f32", "dense_build_grad")}
 
 
 class CheckFailed(RuntimeError):
@@ -87,20 +98,47 @@ def check(ok: bool, what: str) -> None:
         raise CheckFailed(what)
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of fn() in ms."""
+def cuda_ms(fn, reps: int = 50, windows: int = 5, warmup: int = 3) -> float:
+    """Time of one fn() call in ms: after `warmup` calls, one CUDA-event
+    pair around `reps` back-to-back calls, divided by `reps`; the median
+    over `windows` such windows. Where the host work of a call outlasts
+    the kernels it launches, the device waits and this time is the
+    host's."""
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 50) -> float:
+    """The device's self time of every kernel that one fn() call launches,
+    in ms: torch.profiler over `reps` back-to-back calls, divided by `reps`.
+    Host time between the kernels is not in it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in p.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy / 1e3 / reps
+
+
+def timed(fn) -> dict:
+    """{"ms": cuda_ms(fn), "device_ms": device_ms(fn)} over the same
+    back-to-back calls."""
+    return {"ms": cuda_ms(fn), "device_ms": device_ms(fn)}
 
 
 def card_line() -> str:
@@ -224,7 +262,7 @@ def phase_kernels(config, model, frames, device, card):
     torch.cuda.synchronize()
     check(torch.equal(x.grad, want_grad), "dense gradient differs from plain")
     print(f"  dense_build gradient: bit-equal over {x.grad.numel()} elements")
-    del cot, x
+    del x
 
     with torch.inference_mode():
         copy_err = 0.0
@@ -237,41 +275,67 @@ def phase_kernels(config, model, frames, device, card):
             print(f"  run_copy ({name}): bit-equal over {rgot.numel()} "
                   "elements")
 
+        # the inference B=8 batch: the vendored frames cycled
+        p8, n8 = predict.stage_points([frames[i % 3] for i in range(8)],
+                                      config, rng)
+        prep8 = prepare(torch.from_numpy(p8).to(device),
+                        torch.from_numpy(n8).to(device), spec, K)
+        args8 = (prep8.sorted_planar, prep8.run_start, prep8.num_voxels,
+                 prep8.counts, *w)
+
         padded = torch.nn.functional.pad(prep.sorted_planar, (0, T))
         index = run_copy.gather_index(prep.run_start, T).contiguous()
         f32 = got.float()
+        # name -> (kernel, plain version, one torch call or None)
         times = {
-            "vfe_fused": (cuda_ms(lambda: vfe_fused.vfe_fused(*args, T)),
-                          cuda_ms(lambda: vfe_fused.vfe_fused_plain(*args,
-                                                                    T)),
+            "vfe_fused": (timed(lambda: vfe_fused.vfe_fused(*args, T)),
+                          timed(lambda: vfe_fused.vfe_fused_plain(*args, T)),
                           None),
-            "dense_build": (cuda_ms(lambda: dense_build.dense_build(
-                got, ids, n)), cuda_ms(lambda: dense_build.dense_build_plain(
+            "vfe_fused_b8": (
+                timed(lambda: vfe_fused.vfe_fused(*args8, T)),
+                timed(lambda: vfe_fused.vfe_fused_plain(*args8, T)), None),
+            "dense_build": (timed(lambda: dense_build.dense_build(
+                got, ids, n)), timed(lambda: dense_build.dense_build_plain(
                     got, ids, n)), None),
-            "dense_build_f32": (cuda_ms(lambda: dense_build.dense_build(
-                f32, ids, n)), cuda_ms(lambda: dense_build.dense_build_plain(
+            "dense_build_f32": (timed(lambda: dense_build.dense_build(
+                f32, ids, n)), timed(lambda: dense_build.dense_build_plain(
                     f32, ids, n)), None),
+            # the dense grid's backward is itself a torch gather
+            "dense_build_grad": (timed(lambda: dense_build.dense_build_grad(
+                cot, ids, n)), None, None),
             "run_copy": (
-                cuda_ms(lambda: run_copy.run_copy(prep.sorted_planar,
-                                                  prep.run_start, T)),
-                cuda_ms(lambda: run_copy.run_copy_plain(
+                timed(lambda: run_copy.run_copy(prep.sorted_planar,
+                                                prep.run_start, T)),
+                timed(lambda: run_copy.run_copy_plain(
                     prep.sorted_planar, prep.run_start, T)),
-                cuda_ms(lambda: torch.gather(padded, 2, index))),
+                timed(lambda: torch.gather(padded, 2, index))),
         }
-    for name, (k_ms, p_ms, l_ms) in times.items():
-        print(f"  {name}: kernel {k_ms} ms, plain {p_ms} ms, one torch call "
-              f"{l_ms} ms (B=2, CUDA-event median) [{card}]")
+    for name, parts in times.items():
+        print(f"  {name}: " + ", ".join(
+            f"{what} {t['ms']} ms (device {t['device_ms']} ms)"
+            for what, t in zip(("kernel", "plain", "one torch call"), parts)
+            if t is not None)
+              + f" [{card}]")
 
     B, K = 2, prep.run_start.shape[1]
     weights = nbytes(*w)
-    bounds = {
+
+    def vfe_bound(p, batch):
         # the VFE's products take bf16 operands and accumulate in f32, as
         # the TPU kernel's MXU dots do: the tensor cores' bf16 rate
-        "vfe_fused": bound(
-            nbytes(prep.sorted_planar, prep.run_start, prep.num_voxels,
-                   prep.counts) + weights + B * K * 128 * 2,
-            VFE_FLOP_PER_POINT * float(prep.counts.sum()), torch.bfloat16),
+        return bound(
+            nbytes(p.sorted_planar, p.run_start, p.num_voxels, p.counts)
+            + weights + batch * K * 128 * 2,
+            VFE_FLOP_PER_POINT * float(p.counts.sum()), torch.bfloat16)
+
+    bounds = {
+        "vfe_fused": vfe_bound(prep, B),
+        "vfe_fused_b8": vfe_bound(prep8, 8),
         "dense_build": bound(nbytes(got, ids) + B * n * 128 * 2),
+        "dense_build_f32": bound(nbytes(f32, ids) + B * n * 128 * 4),
+        # the occupied rows read and all rows written, and the ids
+        "dense_build_grad": bound(
+            int((ids < n).sum()) * 128 * 2 + nbytes(got, ids)),
         "run_copy": bound(nbytes(prep.sorted_planar, prep.run_start)
                           + B * K * T * 16),
     }
@@ -532,6 +596,36 @@ def phase_train_timing(frames, device, card, seed):
         del state, batch
 
 
+def kernel_entry(name, times, errs, bounds, launches, infer_launches,
+                 train_launches) -> dict:
+    """One kernel's object of the {"kernels": [...]} line: event and
+    profiler device times of the kernel, its plain version and its one
+    torch call, its bound, and extra shapes of the same kernel."""
+    def cols(prefix, key):
+        k, p, lib = times[key]
+        out = {f"{prefix}ms": k["ms"], f"{prefix}device_ms": k["device_ms"]}
+        if p is not None:
+            out.update({f"{prefix}plain_ms": p["ms"],
+                        f"{prefix}plain_device_ms": p["device_ms"]})
+        out[f"{prefix}bound_ms"], out[f"{prefix}bound_by"] = bounds.get(
+            key, (None, None))
+        return out
+
+    lib = times[name][2]
+    entry = {"name": name, "route": "cuda",
+             "source": f"voxelnet_tpu_torch/csrc/{name}.cu",
+             "replaces": REPLACES[name], "design_pr": DESIGN_PR[name],
+             "launches": launches[name],
+             "launches_by_path": {"inference": infer_launches[name],
+                                  "train": train_launches[name]},
+             "max_abs_err": errs[name], **cols("", name),
+             "library_ms": lib["ms"] if lib else None,
+             "library_device_ms": lib["device_ms"] if lib else None}
+    for extra in EXTRA_SHAPES.get(name, ()):
+        entry.update(cols(f"{extra.removeprefix(name + '_')}_", extra))
+    return entry
+
+
 def parse_args(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0,
@@ -581,18 +675,8 @@ def main(argv=None):
                 "run_copy": train_launches["run_copy"]}
     print(card)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": f"voxelnet_tpu_torch/csrc/{name}.cu",
-         "replaces": REPLACES[name], "launches": launches[name],
-         "launches_by_path": {"inference": infer_launches[name],
-                              "train": train_launches[name]},
-         "max_abs_err": errs[name], "ms": times[name][0],
-         "plain_ms": times[name][1], "bound_ms": bounds[name][0],
-         "bound_by": bounds[name][1], "library_ms": times[name][2],
-         **({"f32_ms": times["dense_build_f32"][0],
-             "f32_plain_ms": times["dense_build_f32"][1]}
-            if name == "dense_build" else {})}
-        for name in KERNELS]}))
+        kernel_entry(name, times, errs, bounds, launches, infer_launches,
+                     train_launches) for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
