@@ -81,7 +81,7 @@ PEAK_FLOP_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 VFE_FLOP_PER_POINT = 2 * (7 * 16 + 32 * 64)
 TRAIN_STEPS = 8
 # the PR whose design each kernel runs
-DESIGN_PR = {"vfe_fused": 1, "dense_build": 1, "run_copy": 2}
+DESIGN_PR = {"vfe_fused": 3, "dense_build": 1, "run_copy": 2}
 # timed shapes beside each kernel's Car B=2 one: the fused VFE at the
 # inference B=8 batch; the dense grid in f32 (train) and its backward (a
 # torch gather, no kernel of the port)
@@ -182,6 +182,23 @@ def compare_vfe(got, want) -> float:
     return float((g - w).abs().max())
 
 
+def crowded_frame(config, n_cells: int, device) -> torch.Tensor:
+    """(1, max_points, 4) points spread evenly over `n_cells` random voxels
+    of the grid: max_points / n_cells points each."""
+    n_pts = config.data.max_points
+    g = np.random.default_rng(SEED + 2)
+    obj = config.object
+    size = np.asarray([obj.x_voxel_size, obj.y_voxel_size, obj.z_voxel_size])
+    lo = np.asarray([obj.x_min, obj.y_min, obj.z_min])
+    cells = g.integers(0, [obj.width, obj.height, obj.depth], (n_cells, 3))
+    centres = lo + (cells + 0.5) * size
+    crowd = np.zeros((1, n_pts, 4), np.float32)
+    crowd[0, :, :3] = (centres[np.arange(n_pts) % n_cells]
+                       + g.uniform(-0.25, 0.25, (n_pts, 3)) * size)
+    crowd[0, :, 3] = g.uniform(0, 1, n_pts)
+    return torch.from_numpy(crowd).to(device)
+
+
 def phase_kernels(config, model, frames, device, card):
     """Each kernel against its plain version at Car shapes, B=2."""
     print("[3] kernels against their plain versions (Car, B=2)")
@@ -201,33 +218,36 @@ def phase_kernels(config, model, frames, device, card):
         want = vfe_fused.vfe_fused_plain(*args, T)
         torch.cuda.synchronize()
         print(f"  occupied voxels {prep.num_voxels.tolist()} "
-              f"(raw {prep.num_voxels_raw.tolist()}), voxels over 32 "
-              f"points: {int((prep.counts > 32).sum())}")
+              f"(raw {prep.num_voxels_raw.tolist()}), stored points "
+              f"{prep.counts.sum(1).tolist()}, voxels at T={T} points: "
+              f"{int((prep.counts == T).sum())}")
         vfe_err = compare_vfe(got, want)
 
-        # crowded voxels: every voxel over 32 points, the kernel's
-        # two-slot path
-        n_pts = config.data.max_points
-        g = np.random.default_rng(SEED + 2)
-        obj = config.object
-        size = np.asarray([obj.x_voxel_size, obj.y_voxel_size,
-                           obj.z_voxel_size])
-        lo = np.asarray([obj.x_min, obj.y_min, obj.z_min])
-        cells = g.integers(0, [obj.width, obj.height, obj.depth], (1800, 3))
-        centres = lo + (cells + 0.5) * size
-        crowd = np.zeros((1, n_pts, 4), np.float32)
-        crowd[0, :, :3] = (centres[np.arange(n_pts) % 1800]
-                           + g.uniform(-0.25, 0.25, (n_pts, 3)) * size)
-        crowd[0, :, 3] = g.uniform(0, 1, n_pts)
-        cp = prepare(torch.from_numpy(crowd).to(device),
-                     torch.tensor([crowd.shape[1]], device=device), spec, K)
+        # crowded frames: the Car T=35 one, and one at T=100 (above the
+        # first design's limit of 64); tiles of many chunks
+        cp = prepare(crowded_frame(config, 1800, device), torch.tensor(
+            [config.data.max_points], device=device), spec, K)
         cargs = (cp.sorted_planar, cp.run_start, cp.num_voxels, cp.counts, *w)
-        print(f"  crowded frame: {int((cp.counts > 32).sum())} voxels over "
-              "32 points")
-        check(int((cp.counts > 32).sum()) > 100, "crowded case too sparse")
+        full = int((cp.counts == T).sum())
+        print(f"  crowded frame, T={T}: {full} voxels at T points")
+        check(full > 100, "crowded case too sparse")
         vfe_err = max(vfe_err, compare_vfe(vfe_fused.vfe_fused(*cargs, T),
                                            vfe_fused.vfe_fused_plain(
                                                *cargs, T)))
+        T100 = 100
+        c100 = prepare(crowded_frame(config, 600, device), torch.tensor(
+            [config.data.max_points], device=device),
+            spec._replace(max_points_per_voxel=T100), K)
+        over = int((c100.counts > 64).sum())
+        print(f"  crowded frame, T={T100}: {over} voxels over 64 points, "
+              f"{int((c100.counts == T100).sum())} at T points")
+        check(over > 100, "crowded T=100 case too sparse")
+        c100args = (c100.sorted_planar, c100.run_start, c100.num_voxels,
+                    c100.counts, *w)
+        vfe_err = max(vfe_err, compare_vfe(
+            vfe_fused.vfe_fused(*c100args, T100),
+            vfe_fused.vfe_fused_plain(*c100args, T100)))
+        del c100, c100args
 
         D, H, W = config.object.grid_size
         n = D * H * W
@@ -654,6 +674,8 @@ def main(argv=None):
         _build.load(module.__name__.rsplit(".", 1)[1], module._ARGTYPES)
     print(f"[2] built {sorted(_build.build_seconds)} in "
           f"{time.perf_counter() - t0} s ({_build.build_seconds})")
+    vfe_info = vfe_fused.kernel_info()
+    print(f"    vfe_fused_kernel: {vfe_info}")
 
     frames = sample_frames()
     check(len(frames) == 3, "expected 3 vendored frames")
@@ -674,9 +696,11 @@ def main(argv=None):
                 "dense_build": train_launches["dense_build"],
                 "run_copy": train_launches["run_copy"]}
     print(card)
-    print(json.dumps({"kernels": [
-        kernel_entry(name, times, errs, bounds, launches, infer_launches,
-                     train_launches) for name in KERNELS]}))
+    entries = [kernel_entry(name, times, errs, bounds, launches,
+                            infer_launches, train_launches)
+               for name in KERNELS]
+    entries[KERNELS.index("vfe_fused")].update(vfe_info)
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

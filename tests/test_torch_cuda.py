@@ -33,8 +33,8 @@ def _points(cfg, seed):
     pts[..., :3] = rng.uniform([obj.x_min, obj.y_min, obj.z_min],
                                [obj.x_max, obj.y_max, obj.z_max], (2, n, 3))
     pts[..., 3] = rng.uniform(0, 1, (2, n))
-    # one voxel over 32 points (the kernel's two-slot path) in the lowest
-    # depth slice, which the voxel cap keeps
+    # one voxel at T points in the lowest depth slice, which the voxel cap
+    # keeps
     pts[1, :60, :3] = np.asarray([6.1, 0.1, -2.9]) + 0.01 * np.arange(
         60)[:, None] / 60
     return pts, np.asarray([n, n - 500], np.int32)
@@ -58,6 +58,62 @@ def test_vfe_kernel_matches_plain(cuda_device):
     torch.cuda.synchronize()
     assert vfe_fused.launches == before + 1
     assert int(prep.counts.max()) > 32
+    assert_bf16_close(got.cpu(), want.float().cpu().numpy())
+
+
+def _runs(seed, K, T, nv, lengths):
+    """Inputs of vfe_fused for frames with nv[b] occupied voxels whose runs
+    of `lengths(rng, K)` points follow one another in the stream (runs
+    longer than T are cut to T stored points), points scattered around one
+    centre per voxel."""
+    rng = np.random.default_rng(seed)
+    B = len(nv)
+    lens = [np.where(np.arange(K) < nv[b], lengths(rng, K), 0)
+            for b in range(B)]
+    N = int(max(ln.sum() for ln in lens)) + 7
+    planar = np.zeros((B, 4, N), np.float32)
+    run_start = np.full((B, K), N, np.int32)
+    counts = np.zeros((B, K), np.int32)
+    for b in range(B):
+        starts = np.concatenate([[0], np.cumsum(lens[b])[:-1]])
+        run_start[b, :nv[b]] = starts[:nv[b]]
+        counts[b] = np.minimum(lens[b], T)
+        owner = np.repeat(np.arange(K), lens[b])
+        centre = rng.uniform([0, -40, -3], [70, 40, 1], (K, 3))
+        planar[b, :3, :owner.size] = (centre[owner] + rng.normal(
+            0, 0.1, (owner.size, 3))).T
+        planar[b, 3, :owner.size] = rng.uniform(0, 1, owner.size)
+    return (planar, run_start, np.asarray(nv, np.int32), counts)
+
+
+@pytest.mark.parametrize("K,T,nv,lengths", [
+    # num_voxels not a multiple of the 32-voxel tile, nor K
+    (200, 35, (133, 200), lambda rng, K: rng.integers(1, 45, K)),
+    # a frame with no voxel beside a partly filled one
+    (70, 35, (0, 57), lambda rng, K: rng.integers(1, 45, K)),
+    # every voxel of every tile holds exactly T points: chunks of 7 voxels
+    (96, 35, (96,), lambda rng, K: np.full(K, 38)),
+    # crowded at T=100, above the first design's limit of 64
+    (64, 100, (64, 40), lambda rng, K: rng.integers(60, 160, K)),
+    # the largest T: chunks of 2 voxels
+    (40, 127, (40,), lambda rng, K: np.full(K, 127)),
+], ids=["ragged", "empty-frame", "full-tiles", "crowded-T100", "T127"])
+def test_vfe_kernel_tile_edges(cuda_device, K, T, nv, lengths):
+    """The kernel against its plain version under chip_smoke.py's gate
+    (>= 99.9% bit-equal, the rest within 2**-7), one launch."""
+    fln = _model(get_config("Car", **TINY)).to(cuda_device).feature_net
+    args = (*(torch.from_numpy(a).to(cuda_device)
+              for a in _runs(K + T, K, T, nv, lengths)),
+            *vfe_fused.fold_layer(fln.vfe1.fcn, fln.vfe1.bn, 8),
+            *vfe_fused.fold_layer(fln.vfe2.fcn, fln.vfe2.bn, 32))
+    before = vfe_fused.launches
+    with torch.no_grad():
+        got = vfe_fused.vfe_fused(*args, T)
+        want = vfe_fused.vfe_fused_plain(*args, T)
+    torch.cuda.synchronize()
+    assert vfe_fused.launches == before + 1
+    assert int((args[3] == T).sum()) > 0
+    assert not got[0, nv[0]:].any() and not got[-1, nv[-1]:].any()
     assert_bf16_close(got.cpu(), want.float().cpu().numpy())
 
 
@@ -150,7 +206,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
             torch.zeros(1, 4, 64, **f32), torch.zeros(1, 8, **i32),
             torch.zeros(1, **i32), torch.zeros(1, 8, **i32),
             torch.zeros(16, 8, **f32), torch.zeros(16, 3, **f32),
-            torch.zeros(64, 32, **f32), torch.zeros(64, 3, **f32), 65)
+            torch.zeros(64, 32, **f32), torch.zeros(64, 3, **f32), 128)
 
 
 def test_inference_on_card_matches_cpu(cuda_device):

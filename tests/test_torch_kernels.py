@@ -9,8 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_helpers import (assert_bf16_close, configs, jax_variables,
-                                random_points, torch_model)
+from torch_port_helpers import (TINY, assert_bf16_close, configs,
+                                jax_variables, merged, random_points,
+                                torch_model)
 
 from voxelnet_tpu.kernels.vfe_fused import voxelize_vfe_fused
 from voxelnet_tpu.models.scatter import scatter_to_dense_streamed
@@ -19,14 +20,16 @@ from voxelnet_tpu_torch.kernels import _build, dense_build, vfe_fused
 from voxelnet_tpu_torch.ops import voxelize
 
 
-def _vfe_inputs(seed, n):
-    jcfg, tcfg = configs()
+def _vfe_inputs(seed, n, T, crowd):
+    jcfg, tcfg = configs(overrides=merged(TINY, object={
+        "points_per_voxel": T}))
     rng = np.random.default_rng(seed)
     pts, num = random_points(rng, jcfg, 2, n)
-    # a crowded cluster in the lowest depth slice (kept under the voxel
-    # cap, which keeps the lowest ids) so some voxels hold T points
-    pts[0, :300, :3] = rng.uniform([2.0, 1.0, -2.95], [2.4, 1.4, -2.65],
-                                   (300, 3))
+    # a crowded cluster of `crowd` points over 4 voxels of the lowest depth
+    # slice (kept under the voxel cap, which keeps the lowest ids) so some
+    # voxels hold T points
+    pts[0, :crowd, :3] = rng.uniform([2.0, 1.0, -2.95], [2.4, 1.4, -2.65],
+                                     (crowd, 3))
     return jcfg, tcfg, pts, num
 
 
@@ -36,9 +39,14 @@ def _folded(model):
             *vfe_fused.fold_layer(fln.vfe2.fcn, fln.vfe2.bn, 32))
 
 
-@pytest.mark.parametrize("seed,n", [(0, 1800), (1, 400)])
-def test_vfe_plain_matches_pallas_interpret(seed, n):
-    jcfg, tcfg, pts, num = _vfe_inputs(seed, n)
+@pytest.mark.parametrize("seed,n,T,crowd", [
+    pytest.param(0, 1800, 35, 300, id="0-1800"),
+    pytest.param(1, 400, 35, 300, id="1-400"),
+    # above the 64 points the first CUDA design took
+    pytest.param(2, 1800, 100, 700, id="2-1800-T100"),
+])
+def test_vfe_plain_matches_pallas_interpret(seed, n, T, crowd):
+    jcfg, tcfg, pts, num = _vfe_inputs(seed, n, T, crowd)
     variables = jax_variables(jcfg, seed)
     K = jcfg.data.max_voxels
     want, wcoords, wcounts = voxelize_vfe_fused(
@@ -60,7 +68,7 @@ def test_vfe_plain_matches_pallas_interpret(seed, n):
     np.testing.assert_array_equal(prep.counts.numpy(), np.asarray(wcounts))
     assert_bf16_close(got, np.asarray(want.astype(jnp.float32)))
     assert torch.equal(via_module, got)
-    assert int((prep.counts == tcfg.object.points_per_voxel).sum()) > 0
+    assert int((prep.counts == T).sum()) > 0
 
 
 def _dense_case(rng, D, H, W, K, C, B, nv):

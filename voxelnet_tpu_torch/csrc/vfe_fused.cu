@@ -2,26 +2,54 @@
 //
 // Replaces the TPU kernel voxelnet_tpu/kernels/vfe_fused.py::_kernel (entry
 // voxelize_vfe_fused). It computes the same function, not the TPU layout:
-// per voxel, copy its run of at most T sorted points, centroid offsets,
+// per voxel, take its run of at most T sorted points, centroid offsets,
 // VFE1 (7->16 dense, ReLU, folded BN, masked max, concat -> 32), VFE2
 // (32->64, the same), and emit [agg2, agg2] (128 bf16), zero for empty
 // voxels. The voxel table never reaches device memory.
 //
-// Design: one warp per voxel; lane l holds point slots l and l + 32
-// (T <= 64), so the whole per-point MLP lives in registers and the masked
-// max over points is a warp shuffle reduction. The folded weights sit in
-// shared memory and are read as float4 broadcasts. Voxels with at most 32
-// points (almost all of them) skip the second slot.
+// What bounds it on an H100: bytes. It must read the sorted points (16 B
+// each), the run starts and counts, and write 256 B per voxel slot (Car,
+// B=2: ~10.8 MB, 0.0032 ms at 3.35 TB/s); its 4,320 FLOP per stored point
+// take a sixth of that at the tensor cores' bf16 rate. What held the
+// first design (a warp per voxel, a point slot per lane) far from that was
+// latency: ~85% of its lanes held no point, every lane ran the 2,048-FMA
+// VFE2 dot as serial f32 chains, and each voxel paid 80 warp-wide max
+// shuffles, at one 256-thread block per SM.
+//
+// Design: point-major tiles. A block takes a tile of 32 consecutive voxel
+// slots of one frame (a persistent grid walks over the tiles). A warp scan
+// of their counts gives each voxel its offset in a compacted list of the
+// tile's stored points; the block stages them in chunks of at most 256
+// rows that hold whole voxels (T <= 127, so a chunk holds at least two),
+// with a point -> voxel index. The work then scales with stored points,
+// not with voxel slots:
+//   - centroids: per voxel, a warp sums its points in f32 and divides by
+//     the count (__fdiv_rn);
+//   - VFE1 (8 -> 16, zero-padded): one thread per point on CUDA cores; the
+//     per-voxel max goes to shared memory with atomicMax on an
+//     order-preserving int encoding of the float;
+//   - VFE2: the bf16 rows [y1, agg1[voxel]] (32 wide) times the folded w2
+//     (32 -> 64) with mma.sync m16n8k16 (bf16 in, f32 accumulate): each
+//     16-point row tile is 2 k-steps x 8 n-tiles. A comes from shared
+//     memory through ldmatrix (the agg1 half straight from a per-voxel
+//     table, one row address per point); B sits in shared memory in the
+//     fragment layout. mma.sync's accumulator layout is documented (lane l
+//     holds rows l/4 and l/4 + 8, columns 2*(l%4) + {0, 1} of each 16 x 8
+//     tile), so the epilogue knows each value's point: it applies the
+//     affine, rounds to bf16 and takes the per-voxel max with atomicMax as
+//     above. A max does not depend on order, so the output is
+//     deterministic;
+//   - output: [agg2, agg2] per voxel with 16-byte stores, the tile's 8 KB
+//     contiguous.
+// wgmma and TMA buy nothing here: at K = 32 and N = 64 the products are a
+// sixth of the byte bound, and the kernel waits on bytes and latency,
+// not on the tensor cores' rate.
 //
 // Rounding follows the TPU kernel: dot inputs rounded to bf16, products
 // accumulated in f32, then relu(y + b), then y * scale + shift (separate
-// roundings, no FMA contraction), then bf16; the max runs over bf16 values
-// of the points t < count. The f32 accumulation order differs from any
+// roundings, no FMA contraction), then bf16; the max runs over the bf16
+// values of the stored points. The f32 accumulation order differs from any
 // matmul's, so a few outputs land one bf16 ulp away from the plain version.
-//
-// What bounds it on an H100: arithmetic and shuffles. Reads are ~16 bytes
-// per point and 256 bytes are written per voxel (Car, B=8: ~10 MB), while
-// each occupied voxel costs ~2.2k FMAs per lane.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -29,17 +57,66 @@
 
 namespace {
 
-constexpr int kC1 = 16;    // VFE1 units
-constexpr int kIn1 = 8;    // 7 point features + 1 zero pad
-constexpr int kC2 = 64;    // VFE2 units
-constexpr int kIn2 = 32;   // [pointwise 16, aggregate 16]
-constexpr int kWarps = 8;  // voxels per block iteration
+constexpr int kTileV = 32;       // voxel slots per tile: one per lane
+constexpr int kThreads = 256;    // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 4;    // resident blocks per SM the registers allow
+constexpr int kRows = 256;       // stored points per chunk: one per thread
+constexpr int kMaxT = 127;       // points per voxel, as the TPU kernel
+constexpr int kC1 = 16;          // VFE1 units
+constexpr int kIn1 = 8;          // 7 point features + 1 zero pad
+constexpr int kC2 = 64;          // VFE2 units
+constexpr int kIn2 = 32;         // [pointwise 16, aggregate 16]
+constexpr int kRowStride = 24;   // bf16 per staged row: 48 B, ldmatrix
+                                 // without bank conflicts
+constexpr int kAgg1Stride = 17;  // VFE1 max keys per voxel
+constexpr int kAgg2Stride = 72;  // VFE2 max keys per voxel (16 B aligned)
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kNegInfKey = (int)0x807fffff;  // key_of(-inf)
+static_assert(kRows >= 2 * kMaxT, "a chunk must hold a whole voxel");
+static_assert(kRows == kThreads, "one staged point per thread");
 
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+struct Smem {
+  alignas(16) uint2 w2f[2 * 8 * 32];  // mma B fragments: [n-tile][k-step][lane]
+  alignas(16) __nv_bfloat16 y1[kRows * kRowStride];      // VFE1 per point
+  alignas(16) __nv_bfloat16 agg1b[kTileV * kRowStride];  // VFE1 max per voxel
+  alignas(16) int agg2[kTileV * kAgg2Stride];            // VFE2 max keys
+  int agg1[kTileV * kAgg1Stride];                        // VFE1 max keys
+  alignas(16) float w1[kC1 * kIn1];  // bf16-rounded
+  float a1[kC1 * 3];
+  alignas(16) float bias2[kC2];
+  alignas(16) float scale2[kC2];
+  alignas(16) float shift2[kC2];
+  float px[kRows], py[kRows], pz[kRows];
+  float cen[kTileV][3];
+  int start[kTileV], cnt[kTileV], off[kTileV + 1];
+  unsigned char vox[kRows];
+};
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// signed-int order of the keys = float order (no NaNs here)
+__device__ __forceinline__ int key_of(float f) {
+  const int i = __float_as_int(f);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float float_of(int k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+}
+
+// relu(y + bias) * scale + shift, rounded to bf16 (three separate roundings)
+__device__ __forceinline__ float affine(float y, float bias, float scale,
+                                        float shift) {
+  y = fmaxf(__fadd_rn(y, bias), 0.0f);
+  return bf16_round(__fadd_rn(__fmul_rn(y, scale), shift));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -48,115 +125,108 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
+// sum_i w[i] * x[i] over 8 weights in shared memory, one f32 FMA chain
+__device__ __forceinline__ float dot8(const float* w, const float (&x)[8]) {
+  const float4 p = reinterpret_cast<const float4*>(w)[0];
+  const float4 q = reinterpret_cast<const float4*>(w)[1];
+  float acc = fmaf(p.x, x[0], 0.0f);
+  acc = fmaf(p.y, x[1], acc);
+  acc = fmaf(p.z, x[2], acc);
+  acc = fmaf(p.w, x[3], acc);
+  acc = fmaf(q.x, x[4], acc);
+  acc = fmaf(q.y, x[5], acc);
+  acc = fmaf(q.z, x[6], acc);
+  return fmaf(q.w, x[7], acc);
 }
 
-// relu(y + bias) * scale + shift, rounded to bf16 (three separate roundings)
-__device__ __forceinline__ float affine(float y, const float* a) {
-  y = fmaxf(__fadd_rn(y, a[0]), 0.0f);
-  return bf16_round(__fadd_rn(__fmul_rn(y, a[1]), a[2]));
+// four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
 }
 
-// sum_i w[i] * x[i] over n (a multiple of 4) weights in shared memory
-template <int n>
-__device__ __forceinline__ float dot(const float* w, const float* x) {
-  float acc = 0.0f;
-  const float4* w4 = reinterpret_cast<const float4*>(w);
-#pragma unroll
-  for (int i = 0; i < n / 4; ++i) {
-    const float4 q = w4[i];
-    acc = fmaf(q.x, x[4 * i + 0], acc);
-    acc = fmaf(q.y, x[4 * i + 1], acc);
-    acc = fmaf(q.z, x[4 * i + 2], acc);
-    acc = fmaf(q.w, x[4 * i + 3], acc);
+// d (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+__device__ void load_weights(Smem& sm, const float* __restrict__ w1,
+                             const float* __restrict__ a1,
+                             const float* __restrict__ w2,
+                             const float* __restrict__ a2) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < kC1 * kIn1; i += kThreads) sm.w1[i] = bf16_round(w1[i]);
+  for (int i = tid; i < kC1 * 3; i += kThreads) sm.a1[i] = a1[i];
+  for (int i = tid; i < kC2; i += kThreads) {
+    sm.bias2[i] = a2[3 * i];
+    sm.scale2[i] = a2[3 * i + 1];
+    sm.shift2[i] = a2[3 * i + 2];
   }
-  return acc;
+  // B fragment of n-tile j, k-step s for lane l: w2[n][k], w2[n][k + 1]
+  // and w2[n][k + 8], w2[n][k + 9] with n = 8j + l/4, k = 16s + 2(l%4)
+  for (int i = tid; i < 2 * 8 * 32; i += kThreads) {
+    const int l = i & 31, s = (i >> 5) & 1, j = i >> 6;
+    const float* row = w2 + (8 * j + (l >> 2)) * kIn2 + 16 * s + 2 * (l & 3);
+    sm.w2f[i] = make_uint2(pack_bf16(row[0], row[1]), pack_bf16(row[8], row[9]));
+  }
 }
 
-// One voxel by one warp. NP = point slots per lane (1: count <= 32, 2: <= 64).
-template <int NP>
-__device__ void voxel(const float* __restrict__ pts, int n_stride, int start,
-                      int cnt, const float* sw1, const float* sa1,
-                      const float* sw2, const float* sa2,
-                      __nv_bfloat16* __restrict__ dst) {
+// VFE2 of the 16 staged rows from row0 on, for one warp: the per-voxel max
+// of the affine output into sm.agg2
+__device__ void vfe2_rows(Smem& sm, int row0, int rows, int va) {
   const int lane = threadIdx.x & 31;
-  bool m[NP];
-  float x[NP][kIn2];  // [0, 8): point features; then [0, 32): VFE2 input
-#pragma unroll
-  for (int p = 0; p < NP; ++p) {
-    const int t = lane + 32 * p;
-    m[p] = t < cnt;
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      x[p][c] = m[p] ? pts[(size_t)c * n_stride + start + t] : 0.0f;
-  }
-  // centroid of the stored points, offsets for stored points only
-  const float denom = (float)cnt;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    float s = 0.0f;
-#pragma unroll
-    for (int p = 0; p < NP; ++p) s += x[p][c];
-    const float cen = __fdiv_rn(warp_sum(s), denom);
-#pragma unroll
-    for (int p = 0; p < NP; ++p) x[p][4 + c] = m[p] ? x[p][c] - cen : 0.0f;
-  }
-#pragma unroll
-  for (int p = 0; p < NP; ++p) {
-    x[p][7] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 7; ++c) x[p][c] = bf16_round(x[p][c]);
-  }
+  // A, k-step 0: the rows' own VFE1 output; k-step 1: their voxel's max
+  const int lr = row0 + (lane & 15);
+  const int lv = lr < rows ? sm.vox[lr] : va;
+  uint32_t a_pt[4], a_agg[4];
+  ldmatrix_x4(a_pt, sm.y1 + lr * kRowStride + 8 * (lane >> 4));
+  ldmatrix_x4(a_agg, sm.agg1b + lv * kRowStride + 8 * (lane >> 4));
 
-  // VFE1: pointwise 16 channels, then the masked max over the voxel
-  float y1[NP][kC1];
+  const int rg = row0 + (lane >> 2), rh = rg + 8;
+  const int vg = rg < rows ? sm.vox[rg] : -1;
+  const int vh = rh < rows ? sm.vox[rh] : -1;
+  const bool merge = vg == vh;   // both rows in one voxel: one max
 #pragma unroll
-  for (int c = 0; c < kC1; ++c) {
-    float mx = neg_inf();
-#pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      y1[p][c] = affine(dot<kIn1>(sw1 + c * kIn1, x[p]), sa1 + 3 * c);
-      if (m[p]) mx = fmaxf(mx, y1[p][c]);
+  for (int j = 0; j < 8; ++j) {
+    float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma_bf16(d, a_pt, sm.w2f[(2 * j) * 32 + lane]);
+    mma_bf16(d, a_agg, sm.w2f[(2 * j + 1) * 32 + lane]);
+    const int c = 8 * j + 2 * (lane & 3);
+    const float2 bias = *reinterpret_cast<const float2*>(sm.bias2 + c);
+    const float2 scale = *reinterpret_cast<const float2*>(sm.scale2 + c);
+    const float2 shift = *reinterpret_cast<const float2*>(sm.shift2 + c);
+    int k00 = key_of(affine(d[0], bias.x, scale.x, shift.x));
+    int k01 = key_of(affine(d[1], bias.y, scale.y, shift.y));
+    const int k10 = key_of(affine(d[2], bias.x, scale.x, shift.x));
+    const int k11 = key_of(affine(d[3], bias.y, scale.y, shift.y));
+    if (merge) {
+      k00 = max(k00, k10);
+      k01 = max(k01, k11);
     }
-    const float agg = warp_max(mx);
-#pragma unroll
-    for (int p = 0; p < NP; ++p) x[p][kC1 + c] = agg;
-  }
-#pragma unroll
-  for (int p = 0; p < NP; ++p)
-#pragma unroll
-    for (int c = 0; c < kC1; ++c) x[p][c] = y1[p][c];
-
-  // VFE2: only the masked max of the pointwise half leaves the kernel
-  // (the final voxel max of [pointwise, aggregate] is [agg2, agg2])
-  float keep[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = 32 * h + j;
-      float mx = neg_inf();
-#pragma unroll
-      for (int p = 0; p < NP; ++p) {
-        const float y = affine(dot<kIn2>(sw2 + c * kIn2, x[p]), sa2 + 3 * c);
-        if (m[p]) mx = fmaxf(mx, y);
-      }
-      const float agg = warp_max(mx);
-      if (lane == j) keep[h] = agg;
+    if (vg >= 0) {
+      int* a = sm.agg2 + vg * kAgg2Stride + c;
+      atomicMax(a, k00);
+      atomicMax(a + 1, k01);
+    }
+    if (vh >= 0 && !merge) {
+      int* a = sm.agg2 + vh * kAgg2Stride + c;
+      atomicMax(a, k10);
+      atomicMax(a + 1, k11);
     }
   }
-  const __nv_bfloat16 lo = __float2bfloat16_rn(keep[0]);
-  const __nv_bfloat16 hi = __float2bfloat16_rn(keep[1]);
-  dst[lane] = lo;
-  dst[32 + lane] = hi;
-  dst[64 + lane] = lo;
-  dst[96 + lane] = hi;
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 vfe_fused_kernel(const float* __restrict__ planar,    // (B, 4, N)
                  const int* __restrict__ run_start,   // (B, K)
                  const int* __restrict__ num_voxels,  // (B,)
@@ -166,57 +236,207 @@ vfe_fused_kernel(const float* __restrict__ planar,    // (B, 4, N)
                  const float* __restrict__ w2,        // (64, 32)
                  const float* __restrict__ a2,        // (64, 3)
                  __nv_bfloat16* __restrict__ out,     // (B, K, 128)
-                 int B, int N, int K) {
-  __shared__ __align__(16) float sw1[kC1 * kIn1];
-  __shared__ __align__(16) float sw2[kC2 * kIn2];
-  __shared__ float sa1[kC1 * 3];
-  __shared__ float sa2[kC2 * 3];
-  for (int i = threadIdx.x; i < kC1 * kIn1; i += blockDim.x)
-    sw1[i] = bf16_round(w1[i]);
-  for (int i = threadIdx.x; i < kC2 * kIn2; i += blockDim.x)
-    sw2[i] = bf16_round(w2[i]);
-  for (int i = threadIdx.x; i < kC1 * 3; i += blockDim.x) sa1[i] = a1[i];
-  for (int i = threadIdx.x; i < kC2 * 3; i += blockDim.x) sa2[i] = a2[i];
-  __syncthreads();
+                 int B, int N, int K, int T) {
+  __shared__ Smem sm;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  load_weights(sm, w1, a1, w2, a2);   // first read after the tile's sync
 
-  const int lane = threadIdx.x & 31;
-  const long long total = (long long)B * K;
-  for (long long v = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-       v < total; v += (long long)gridDim.x * kWarps) {
-    const int b = (int)(v / K);
-    const int k = (int)(v - (long long)b * K);
-    __nv_bfloat16* dst = out + v * 128;
-    const int start = run_start[v];
-    // a run never reaches past the stream; clamp so bad input cannot
-    // read out of bounds
-    int cnt = counts[v];
-    cnt = min(cnt, N - start);
-    if (k >= num_voxels[b] || cnt <= 0) {
-      reinterpret_cast<uint2*>(dst)[lane] = make_uint2(0u, 0u);
+  const int tiles_per_frame = (K + kTileV - 1) / kTileV;
+  const long long n_tiles = (long long)B * tiles_per_frame;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int b = (int)(tile / tiles_per_frame);
+    const int k0 = (int)(tile - (long long)b * tiles_per_frame) * kTileV;
+    const int nk = min(kTileV, K - k0);
+    const int nv = min(num_voxels[b], K);
+    uint4* dst = reinterpret_cast<uint4*>(out + ((size_t)b * K + k0) * 128);
+    if (k0 >= nv) {   // no occupied voxel in the tile
+      for (int i = tid; i < nk * 16; i += kThreads)
+        dst[i] = make_uint4(0u, 0u, 0u, 0u);
       continue;
     }
-    const float* pts = planar + (size_t)b * 4 * N;
-    if (cnt <= 32)
-      voxel<1>(pts, N, start, cnt, sw1, sa1, sw2, sa2, dst);
-    else
-      voxel<2>(pts, N, start, cnt, sw1, sa1, sw2, sa2, dst);
+
+    // the tile's runs; a run never reaches past the stream, and is clamped
+    // so that bad input cannot read out of bounds
+    if (warp == 0) {
+      const int k = k0 + lane;
+      int s = N, c = 0;
+      if (k < nv) {
+        s = run_start[(size_t)b * K + k];
+        c = s >= 0 ? max(min(min(counts[(size_t)b * K + k], T), N - s), 0)
+                   : 0;
+      }
+      int inc = c;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(kFull, inc, o);
+        if (lane >= o) inc += t;
+      }
+      sm.start[lane] = s;
+      sm.cnt[lane] = c;
+      sm.off[lane + 1] = inc;
+      if (lane == 0) sm.off[0] = 0;
+    }
+    for (int i = tid; i < kTileV * kAgg2Stride; i += kThreads)
+      sm.agg2[i] = kNegInfKey;
+    __syncthreads();
+
+    // chunks of whole voxels [va, vb) with at most kRows stored points
+    for (int va = 0; va < kTileV;) {
+      const int base = sm.off[va];
+      const bool fits = lane >= va && sm.off[lane + 1] - base <= kRows;
+      const int vb = va + __popc(__ballot_sync(kFull, fits));
+      const int rows = sm.off[vb] - base;
+      if (rows == 0) break;
+
+      // stage: row tid -> its voxel (the last one starting at or before
+      // it) and its point
+      const int r = base + tid;
+      int v = 0;
+      float4 p = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (tid < rows) {
+#pragma unroll
+        for (int step = 16; step > 0; step >>= 1)
+          if (sm.off[v + step] <= r) v += step;
+        const float* q = planar + (size_t)b * 4 * N + sm.start[v] +
+                         (r - sm.off[v]);
+        p = make_float4(__ldg(q), __ldg(q + N), __ldg(q + 2 * (size_t)N),
+                        __ldg(q + 3 * (size_t)N));
+        sm.px[tid] = p.x;
+        sm.py[tid] = p.y;
+        sm.pz[tid] = p.z;
+        sm.vox[tid] = (unsigned char)v;
+      }
+      for (int i = tid; i < kTileV * kAgg1Stride; i += kThreads)
+        sm.agg1[i] = kNegInfKey;
+      __syncthreads();
+
+      // centroids: a warp per voxel
+      for (int u = va + warp; u < vb; u += kWarps) {
+        const int c = sm.cnt[u];
+        if (c == 0) continue;
+        const int r0 = sm.off[u] - base;
+        float sx = 0.0f, sy = 0.0f, sz = 0.0f;
+        for (int t = lane; t < c; t += 32) {
+          sx += sm.px[r0 + t];
+          sy += sm.py[r0 + t];
+          sz += sm.pz[r0 + t];
+        }
+        sx = warp_sum(sx);
+        sy = warp_sum(sy);
+        sz = warp_sum(sz);
+        if (lane == 0) {
+          const float denom = (float)c;
+          sm.cen[u][0] = __fdiv_rn(sx, denom);
+          sm.cen[u][1] = __fdiv_rn(sy, denom);
+          sm.cen[u][2] = __fdiv_rn(sz, denom);
+        }
+      }
+      __syncthreads();
+
+      // VFE1: one thread per point
+      if (tid < rows) {
+        const float f[kIn1] = {
+            bf16_round(p.x), bf16_round(p.y), bf16_round(p.z), bf16_round(p.w),
+            bf16_round(p.x - sm.cen[v][0]), bf16_round(p.y - sm.cen[v][1]),
+            bf16_round(p.z - sm.cen[v][2]), 0.0f};
+        int* agg = sm.agg1 + v * kAgg1Stride;
+        uint32_t y[kC1 / 2];
+#pragma unroll
+        for (int c = 0; c < kC1; c += 2) {
+          const float* a = sm.a1 + 3 * c;
+          const float y0 = affine(dot8(sm.w1 + c * kIn1, f), a[0], a[1], a[2]);
+          const float y1 = affine(dot8(sm.w1 + (c + 1) * kIn1, f), a[3], a[4],
+                                  a[5]);
+          y[c / 2] = pack_bf16(y0, y1);
+          atomicMax(agg + c, key_of(y0));
+          atomicMax(agg + c + 1, key_of(y1));
+        }
+        uint4* row = reinterpret_cast<uint4*>(sm.y1 + tid * kRowStride);
+        row[0] = make_uint4(y[0], y[1], y[2], y[3]);
+        row[1] = make_uint4(y[4], y[5], y[6], y[7]);
+      }
+      __syncthreads();
+
+      for (int i = tid; i < (vb - va) * kC1; i += kThreads) {
+        const int u = va + i / kC1, c = i % kC1;
+        sm.agg1b[u * kRowStride + c] =
+            __float2bfloat16_rn(float_of(sm.agg1[u * kAgg1Stride + c]));
+      }
+      __syncthreads();
+
+      // VFE2 on the tensor cores: a warp per 16-row tile
+      for (int row0 = 16 * warp; row0 < rows; row0 += 16 * kWarps)
+        vfe2_rows(sm, row0, rows, va);
+      __syncthreads();
+      va = vb;
+    }
+
+    // [agg2, agg2] per voxel slot, zero where it stores no point
+    for (int i = tid; i < nk * 16; i += kThreads) {
+      const int u = i >> 4;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (sm.cnt[u] > 0) {
+        const int4* key = reinterpret_cast<const int4*>(
+            sm.agg2 + u * kAgg2Stride + 8 * (i & 7));
+        const int4 lo = key[0], hi = key[1];
+        val = make_uint4(pack_bf16(float_of(lo.x), float_of(lo.y)),
+                         pack_bf16(float_of(lo.z), float_of(lo.w)),
+                         pack_bf16(float_of(hi.x), float_of(hi.y)),
+                         pack_bf16(float_of(hi.z), float_of(hi.w)));
+      }
+      dst[i] = val;
+    }
+    __syncthreads();
   }
+}
+
+int max_resident_blocks() {
+  static int blocks = 0;
+  if (blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vfe_fused_kernel,
+                                                  kThreads, 0);
+    blocks = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  return blocks;
 }
 
 }  // namespace
 
+// planar (B, 4, N) f32, run_start (B, K) i32, num_voxels (B,) i32, counts
+// (B, K) i32, folded w1 (16, 8), a1 (16, 3), w2 (64, 32), a2 (64, 3) f32 ->
+// out (B, K, 128) bf16; 1 <= T <= 127.
 extern "C" int vfe_fused_launch(const void* planar, const void* run_start,
                                 const void* num_voxels, const void* counts,
                                 const void* w1, const void* a1,
                                 const void* w2, const void* a2, void* out,
-                                int B, int N, int K, void* stream) {
-  const long long total = (long long)B * K;
-  long long blocks = (total + kWarps - 1) / kWarps;
-  if (blocks > 4096) blocks = 4096;
-  if (blocks < 1) blocks = 1;
-  vfe_fused_kernel<<<(int)blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
+                                int B, int N, int K, int T, void* stream) {
+  if (T < 1 || T > kMaxT) return (int)cudaErrorInvalidValue;
+  const long long tiles = (long long)B * ((K + kTileV - 1) / kTileV);
+  if (tiles == 0) return 0;
+  const long long blocks = tiles < max_resident_blocks()
+                               ? tiles : (long long)max_resident_blocks();
+  vfe_fused_kernel<<<(int)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)planar, (const int*)run_start, (const int*)num_voxels,
       (const int*)counts, (const float*)w1, (const float*)a1,
-      (const float*)w2, (const float*)a2, (__nv_bfloat16*)out, B, N, K);
+      (const float*)w2, (const float*)a2, (__nv_bfloat16*)out, B, N, K, T);
   return (int)cudaGetLastError();
+}
+
+// info[0..3] = registers per thread, local (spill) bytes per thread, static
+// shared bytes per block, resident blocks per SM
+extern "C" int vfe_fused_info(int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, vfe_fused_kernel);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vfe_fused_kernel,
+                                                      kThreads, 0);
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = (int)attr.sharedSizeBytes;
+  info[3] = per_sm;
+  return (int)err;
 }

@@ -16,14 +16,15 @@ import torch
 
 from voxelnet_tpu_torch.kernels import _build
 
-MAX_POINTS_PER_VOXEL = 64   # one warp per voxel, two point slots per lane
+MAX_POINTS_PER_VOXEL = 127  # as the TPU kernel (a voxel's run fits 128 lanes)
 BN_EPS = 1e-5
 
 # kernel launches since the last reset (chip_smoke.py reads it)
 launches = 0
 
 _P = ctypes.c_void_p
-_ARGTYPES = {"vfe_fused_launch": [_P] * 9 + [ctypes.c_int] * 3 + [_P]}
+_ARGTYPES = {"vfe_fused_launch": [_P] * 9 + [ctypes.c_int] * 4 + [_P],
+             "vfe_fused_info": [_P]}
 
 
 def fold_layer(fcn: torch.nn.Linear, bn: torch.nn.BatchNorm1d,
@@ -98,15 +99,27 @@ def vfe_fused(planar: torch.Tensor, run_start: torch.Tensor,
             "w2": (w2, torch.float32, (64, 32)),
             "a2": (a2, torch.float32, (64, 3))}
     _build.require_shapes("vfe_fused", want)
-    if not 0 < points_per_voxel <= MAX_POINTS_PER_VOXEL:
+    if not 0 < points_per_voxel <= MAX_POINTS_PER_VOXEL or N >= 2 ** 31:
         raise ValueError(f"vfe_fused: points_per_voxel {points_per_voxel} "
-                         f"must be in [1, {MAX_POINTS_PER_VOXEL}]")
+                         f"must be in [1, {MAX_POINTS_PER_VOXEL}] and "
+                         f"N={N} < 2**31")
     out = torch.empty((B, K, 128), dtype=torch.bfloat16, device=planar.device)
     lib = _build.load("vfe_fused", _ARGTYPES)
     stream = torch.cuda.current_stream(planar.device).cuda_stream
     err = lib.vfe_fused_launch(*(t.data_ptr() for t in args), out.data_ptr(),
-                               B, N, K, stream)
+                               B, N, K, points_per_voxel, stream)
     _build.check(err, "vfe_fused")
     global launches
     launches += 1
     return out
+
+
+def kernel_info() -> dict:
+    """The built kernel's registers per thread, local (spill) bytes per
+    thread, static shared bytes per block and resident blocks per SM on the
+    current card."""
+    lib = _build.load("vfe_fused", _ARGTYPES)
+    info = (ctypes.c_int * 4)()
+    _build.check(lib.vfe_fused_info(info), "vfe_fused_info")
+    return dict(zip(("registers", "local_bytes", "shared_bytes",
+                     "blocks_per_sm"), info))
