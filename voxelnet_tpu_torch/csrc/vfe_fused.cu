@@ -28,28 +28,32 @@
 //   - VFE1 (8 -> 16, zero-padded): one thread per point on CUDA cores; the
 //     per-voxel max goes to shared memory with atomicMax on an
 //     order-preserving int encoding of the float;
-//   - VFE2: the bf16 rows [y1, agg1[voxel]] (32 wide) times the folded w2
-//     (32 -> 64) with mma.sync m16n8k16 (bf16 in, f32 accumulate): each
-//     16-point row tile is 2 k-steps x 8 n-tiles. A comes from shared
-//     memory through ldmatrix (the agg1 half straight from a per-voxel
-//     table, one row address per point); B sits in shared memory in the
-//     fragment layout. mma.sync's accumulator layout is documented (lane l
-//     holds rows l/4 and l/4 + 8, columns 2*(l%4) + {0, 1} of each 16 x 8
-//     tile), so the epilogue knows each value's point: it applies the
-//     affine, rounds to bf16 and takes the per-voxel max with atomicMax as
-//     above. A max does not depend on order, so the output is
-//     deterministic;
+//   - VFE2: the rows [y1, agg1[voxel]] (32 wide, bf16) times the folded w2
+//     (32 -> 64) on CUDA cores: a thread takes 8 channels of 4
+//     consecutive points, 32 independent f32 FMA chains, each over the 32
+//     inputs in order as a plain f32 matmul sums them; the weights sit in
+//     shared memory, transposed, and a warp's 8 channel groups read them
+//     as 128 contiguous bytes, each weight load serving 4 points. The
+//     epilogue applies the affine, rounds to bf16, merges the maxima of
+//     the thread's points of one voxel in registers and takes the
+//     per-voxel max with atomicMax as above. A max does not depend on
+//     order, so the output is deterministic;
 //   - output: [agg2, agg2] per voxel with 16-byte stores, the tile's 8 KB
 //     contiguous.
-// wgmma and TMA buy nothing here: at K = 32 and N = 64 the products are a
-// sixth of the byte bound, and the kernel waits on bytes and latency,
-// not on the tensor cores' rate.
+// VFE2 is not on the tensor cores: a version with mma.sync m16n8k16
+// (bf16 in, f32 accumulate) failed the port's check against the plain
+// version on an H100 (one output near zero 2.3e-2 relative off, where the
+// check allows 2**-7): the tensor cores' f32 accumulation rounds unlike an
+// IEEE FMA chain, and the affine's shift amplifies that where it cancels
+// the product. wgmma and TMA would change neither that nor the bound: at
+// K = 32 and N = 64 the products are a sixth of the byte bound. On CUDA
+// cores they take ~0.008 ms at Car B=2 at the f32 peak (67 TFLOP/s): the
+// floor of this design, above the bytes' 0.0032 ms.
 //
 // Rounding follows the TPU kernel: dot inputs rounded to bf16, products
 // accumulated in f32, then relu(y + b), then y * scale + shift (separate
 // roundings, no FMA contraction), then bf16; the max runs over the bf16
-// values of the stored points. The f32 accumulation order differs from any
-// matmul's, so a few outputs land one bf16 ulp away from the plain version.
+// values of the stored points.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,15 +64,16 @@ namespace {
 constexpr int kTileV = 32;       // voxel slots per tile: one per lane
 constexpr int kThreads = 256;    // 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kMinBlocks = 4;    // resident blocks per SM the registers allow
+constexpr int kMinBlocks = 3;    // resident blocks per SM the registers allow
+constexpr int kRowsPerThread = 4;  // VFE2 rows a thread reuses weights over
 constexpr int kRows = 256;       // stored points per chunk: one per thread
 constexpr int kMaxT = 127;       // points per voxel, as the TPU kernel
 constexpr int kC1 = 16;          // VFE1 units
 constexpr int kIn1 = 8;          // 7 point features + 1 zero pad
 constexpr int kC2 = 64;          // VFE2 units
 constexpr int kIn2 = 32;         // [pointwise 16, aggregate 16]
-constexpr int kRowStride = 24;   // bf16 per staged row: 48 B, ldmatrix
-                                 // without bank conflicts
+constexpr int kRowStride = 24;   // bf16 per staged row: 48 B, 16-byte
+                                 // loads without bank conflicts
 constexpr int kAgg1Stride = 17;  // VFE1 max keys per voxel
 constexpr int kAgg2Stride = 72;  // VFE2 max keys per voxel (16 B aligned)
 constexpr unsigned kFull = 0xffffffffu;
@@ -77,7 +82,7 @@ static_assert(kRows >= 2 * kMaxT, "a chunk must hold a whole voxel");
 static_assert(kRows == kThreads, "one staged point per thread");
 
 struct Smem {
-  alignas(16) uint2 w2f[2 * 8 * 32];  // mma B fragments: [n-tile][k-step][lane]
+  alignas(16) float w2t[kIn2 * kC2];  // bf16-rounded, [input][channel]
   alignas(16) __nv_bfloat16 y1[kRows * kRowStride];      // VFE1 per point
   alignas(16) __nv_bfloat16 agg1b[kTileV * kRowStride];  // VFE1 max per voxel
   alignas(16) int agg2[kTileV * kAgg2Stride];            // VFE2 max keys
@@ -139,27 +144,6 @@ __device__ __forceinline__ float dot8(const float* w, const float (&x)[8]) {
   return fmaf(q.w, x[7], acc);
 }
 
-// four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// d (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint2 b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
 __device__ void load_weights(Smem& sm, const float* __restrict__ w1,
                              const float* __restrict__ a1,
                              const float* __restrict__ w2,
@@ -172,57 +156,84 @@ __device__ void load_weights(Smem& sm, const float* __restrict__ w1,
     sm.scale2[i] = a2[3 * i + 1];
     sm.shift2[i] = a2[3 * i + 2];
   }
-  // B fragment of n-tile j, k-step s for lane l: w2[n][k], w2[n][k + 1]
-  // and w2[n][k + 8], w2[n][k + 9] with n = 8j + l/4, k = 16s + 2(l%4)
-  for (int i = tid; i < 2 * 8 * 32; i += kThreads) {
-    const int l = i & 31, s = (i >> 5) & 1, j = i >> 6;
-    const float* row = w2 + (8 * j + (l >> 2)) * kIn2 + 16 * s + 2 * (l & 3);
-    sm.w2f[i] = make_uint2(pack_bf16(row[0], row[1]), pack_bf16(row[8], row[9]));
-  }
+  // w2 transposed and bf16-rounded: w2t[i][c] = w2[c][i]
+  for (int i = tid; i < kC2 * kIn2; i += kThreads)
+    sm.w2t[(i % kIn2) * kC2 + i / kIn2] = bf16_round(w2[i]);
 }
 
-// VFE2 of the 16 staged rows from row0 on, for one warp: the per-voxel max
-// of the affine output into sm.agg2
-__device__ void vfe2_rows(Smem& sm, int row0, int rows, int va) {
-  const int lane = threadIdx.x & 31;
-  // A, k-step 0: the rows' own VFE1 output; k-step 1: their voxel's max
-  const int lr = row0 + (lane & 15);
-  const int lv = lr < rows ? sm.vox[lr] : va;
-  uint32_t a_pt[4], a_agg[4];
-  ldmatrix_x4(a_pt, sm.y1 + lr * kRowStride + 8 * (lane >> 4));
-  ldmatrix_x4(a_agg, sm.agg1b + lv * kRowStride + 8 * (lane >> 4));
+// The 8 VFE2 channels of channel group g: 4g..4g+3 and 32+4g..32+4g+3, so
+// that the 8 groups of a warp read 128 contiguous bytes per float4 load
+__device__ __forceinline__ int vfe2_channel(int g, int c) {
+  return 4 * g + (c < 4 ? c : 28 + c);
+}
 
-  const int rg = row0 + (lane >> 2), rh = rg + 8;
-  const int vg = rg < rows ? sm.vox[rg] : -1;
-  const int vh = rh < rows ? sm.vox[rh] : -1;
-  const bool merge = vg == vh;   // both rows in one voxel: one max
+// VFE2 of the staged rows r0 .. r0 + kRowsPerThread - 1 (those below
+// `rows`; r0 is) for channel group g: per channel one f32 FMA chain over
+// the 32 inputs in order, as a plain f32 matmul sums them. The rows are
+// consecutive, so mostly of one voxel: their maxima merge in registers and
+// only a change of voxel costs an atomicMax into sm.agg2.
+__device__ void vfe2_rows(Smem& sm, int r0, int rows, int g) {
+  constexpr int P = kRowsPerThread;
+  int v[P];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    mma_bf16(d, a_pt, sm.w2f[(2 * j) * 32 + lane]);
-    mma_bf16(d, a_agg, sm.w2f[(2 * j + 1) * 32 + lane]);
-    const int c = 8 * j + 2 * (lane & 3);
-    const float2 bias = *reinterpret_cast<const float2*>(sm.bias2 + c);
-    const float2 scale = *reinterpret_cast<const float2*>(sm.scale2 + c);
-    const float2 shift = *reinterpret_cast<const float2*>(sm.shift2 + c);
-    int k00 = key_of(affine(d[0], bias.x, scale.x, shift.x));
-    int k01 = key_of(affine(d[1], bias.y, scale.y, shift.y));
-    const int k10 = key_of(affine(d[2], bias.x, scale.x, shift.x));
-    const int k11 = key_of(affine(d[3], bias.y, scale.y, shift.y));
-    if (merge) {
-      k00 = max(k00, k10);
-      k01 = max(k01, k11);
+  for (int p = 0; p < P; ++p) v[p] = r0 + p < rows ? sm.vox[r0 + p] : -1;
+  float acc[P][8];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[p][c] = 0.0f;
+#pragma unroll
+  for (int blk = 0; blk < 4; ++blk) {
+    // inputs 8 blk .. 8 blk + 7: the row's own VFE1 output, then its
+    // voxel's VFE1 max (rows past the chunk read row r0's voxel)
+    uint4 x[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      x[p] = blk < 2 ? *reinterpret_cast<const uint4*>(
+                           sm.y1 + (r0 + p) * kRowStride + 8 * blk)
+                     : *reinterpret_cast<const uint4*>(
+                           sm.agg1b + (v[p] < 0 ? v[0] : v[p]) * kRowStride +
+                           8 * (blk - 2));
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float* wi = sm.w2t + (8 * blk + e) * kC2;
+      const float4 wa = *reinterpret_cast<const float4*>(wi + 4 * g);
+      const float4 wb = *reinterpret_cast<const float4*>(wi + 32 + 4 * g);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const uint32_t word = (&x[p].x)[e >> 1];
+        const float xe = __uint_as_float(e & 1 ? word & 0xffff0000u
+                                               : word << 16);
+        acc[p][0] = fmaf(wa.x, xe, acc[p][0]);
+        acc[p][1] = fmaf(wa.y, xe, acc[p][1]);
+        acc[p][2] = fmaf(wa.z, xe, acc[p][2]);
+        acc[p][3] = fmaf(wa.w, xe, acc[p][3]);
+        acc[p][4] = fmaf(wb.x, xe, acc[p][4]);
+        acc[p][5] = fmaf(wb.y, xe, acc[p][5]);
+        acc[p][6] = fmaf(wb.z, xe, acc[p][6]);
+        acc[p][7] = fmaf(wb.w, xe, acc[p][7]);
+      }
     }
-    if (vg >= 0) {
-      int* a = sm.agg2 + vg * kAgg2Stride + c;
-      atomicMax(a, k00);
-      atomicMax(a + 1, k01);
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int ch = vfe2_channel(g, c);
+    const float b = sm.bias2[ch], s = sm.scale2[ch], h = sm.shift2[ch];
+    int cur = v[0];
+    int run = key_of(affine(acc[0][c], b, s, h));
+#pragma unroll
+    for (int p = 1; p < P; ++p) {
+      if (v[p] < 0) continue;   // past the chunk: the rest are too
+      const int k = key_of(affine(acc[p][c], b, s, h));
+      if (v[p] == cur) {
+        run = max(run, k);
+      } else {
+        atomicMax(sm.agg2 + cur * kAgg2Stride + ch, run);
+        cur = v[p];
+        run = k;
+      }
     }
-    if (vh >= 0 && !merge) {
-      int* a = sm.agg2 + vh * kAgg2Stride + c;
-      atomicMax(a, k10);
-      atomicMax(a + 1, k11);
-    }
+    atomicMax(sm.agg2 + cur * kAgg2Stride + ch, run);
   }
 }
 
@@ -364,9 +375,11 @@ vfe_fused_kernel(const float* __restrict__ planar,    // (B, 4, N)
       }
       __syncthreads();
 
-      // VFE2 on the tensor cores: a warp per 16-row tile
-      for (int row0 = 16 * warp; row0 < rows; row0 += 16 * kWarps)
-        vfe2_rows(sm, row0, rows, va);
+      // VFE2: a thread per channel group of kRowsPerThread consecutive
+      // rows, 32 such row groups a pass
+      for (int r0 = kRowsPerThread * (tid >> 3); r0 < rows;
+           r0 += kRowsPerThread * (kThreads / 8))
+        vfe2_rows(sm, r0, rows, tid & 7);
       __syncthreads();
       va = vb;
     }
