@@ -242,8 +242,12 @@ def phase_kernels(config, model, frames, device, card):
         print(f"  crowded frame, T={T100}: {over} voxels over 64 points, "
               f"{int((c100.counts == T100).sum())} at T points")
         check(over > 100, "crowded T=100 case too sparse")
+        # and half the VFE2 channels with a negative BN scale (trained
+        # models have some), where the kernel keeps the least dot product
+        flip = torch.ones_like(w[3])
+        flip[::2, 1] = -1
         c100args = (c100.sorted_planar, c100.run_start, c100.num_voxels,
-                    c100.counts, *w)
+                    c100.counts, *w[:3], w[3] * flip)
         vfe_err = max(vfe_err, compare_vfe(
             vfe_fused.vfe_fused(*c100args, T100),
             vfe_fused.vfe_fused_plain(*c100args, T100)))

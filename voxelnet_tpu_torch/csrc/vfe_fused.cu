@@ -34,10 +34,12 @@
 //     inputs in order as a plain f32 matmul sums them; the weights sit in
 //     shared memory, transposed, and a warp's 8 channel groups read them
 //     as 128 contiguous bytes, each weight load serving 4 points. The
-//     epilogue applies the affine, rounds to bf16, merges the maxima of
-//     the thread's points of one voxel in registers and takes the
-//     per-voxel max with atomicMax as above. A max does not depend on
-//     order, so the output is deterministic;
+//     affine, the ReLU and the bf16 rounding are monotone in the dot
+//     product, so the kernel keeps per voxel and channel only the extreme
+//     dot product (the max, or the min where the BN scale is negative:
+//     merged in registers over the thread's points of one voxel, then
+//     atomicMax as above) and applies the affine once per voxel. A max
+//     does not depend on order, so the output is deterministic;
 //   - output: [agg2, agg2] per voxel with 16-byte stores, the tile's 8 KB
 //     contiguous.
 // VFE2 is not on the tensor cores: a version with mma.sync m16n8k16
@@ -92,6 +94,7 @@ struct Smem {
   alignas(16) float bias2[kC2];
   alignas(16) float scale2[kC2];
   alignas(16) float shift2[kC2];
+  float dir2[kC2];         // 1 where the VFE2 affine rises with d, else -1
   float px[kRows], py[kRows], pz[kRows];
   float cen[kTileV][3];
   int start[kTileV], cnt[kTileV], off[kTileV + 1];
@@ -155,6 +158,7 @@ __device__ void load_weights(Smem& sm, const float* __restrict__ w1,
     sm.bias2[i] = a2[3 * i];
     sm.scale2[i] = a2[3 * i + 1];
     sm.shift2[i] = a2[3 * i + 2];
+    sm.dir2[i] = a2[3 * i + 1] < 0.0f ? -1.0f : 1.0f;
   }
   // w2 transposed and bf16-rounded: w2t[i][c] = w2[c][i]
   for (int i = tid; i < kC2 * kIn2; i += kThreads)
@@ -169,9 +173,13 @@ __device__ __forceinline__ int vfe2_channel(int g, int c) {
 
 // VFE2 of the staged rows r0 .. r0 + kRowsPerThread - 1 (those below
 // `rows`; r0 is) for channel group g: per channel one f32 FMA chain over
-// the 32 inputs in order, as a plain f32 matmul sums them. The rows are
-// consecutive, so mostly of one voxel: their maxima merge in registers and
-// only a change of voxel costs an atomicMax into sm.agg2.
+// the 32 inputs in order, as a plain f32 matmul sums them. relu, the affine
+// and the bf16 rounding are monotone in the dot product d, rising where the
+// BN scale is >= 0 and falling where it is < 0, so the voxel's max of the
+// rounded output is that output at the max of d * dir2: only that max is
+// kept (sm.agg2), and the output stage applies the affine once per voxel.
+// The rows are consecutive, so mostly of one voxel: their maxima merge in
+// registers and only a change of voxel costs an atomicMax.
 __device__ void vfe2_rows(Smem& sm, int r0, int rows, int g) {
   constexpr int P = kRowsPerThread;
   int v[P];
@@ -218,13 +226,13 @@ __device__ void vfe2_rows(Smem& sm, int r0, int rows, int g) {
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     const int ch = vfe2_channel(g, c);
-    const float b = sm.bias2[ch], s = sm.scale2[ch], h = sm.shift2[ch];
+    const float dir = sm.dir2[ch];
     int cur = v[0];
-    int run = key_of(affine(acc[0][c], b, s, h));
+    int run = key_of(acc[0][c] * dir);
 #pragma unroll
     for (int p = 1; p < P; ++p) {
       if (v[p] < 0) continue;   // past the chunk: the rest are too
-      const int k = key_of(affine(acc[p][c], b, s, h));
+      const int k = key_of(acc[p][c] * dir);
       if (v[p] == cur) {
         run = max(run, k);
       } else {
@@ -384,18 +392,27 @@ vfe_fused_kernel(const float* __restrict__ planar,    // (B, 4, N)
       va = vb;
     }
 
-    // [agg2, agg2] per voxel slot, zero where it stores no point
+    // [agg2, agg2] per voxel slot, zero where it stores no point: the
+    // affine of the kept VFE2 extreme, rounded to bf16
     for (int i = tid; i < nk * 16; i += kThreads) {
       const int u = i >> 4;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
       if (sm.cnt[u] > 0) {
-        const int4* key = reinterpret_cast<const int4*>(
-            sm.agg2 + u * kAgg2Stride + 8 * (i & 7));
-        const int4 lo = key[0], hi = key[1];
-        val = make_uint4(pack_bf16(float_of(lo.x), float_of(lo.y)),
-                         pack_bf16(float_of(lo.z), float_of(lo.w)),
-                         pack_bf16(float_of(hi.x), float_of(hi.y)),
-                         pack_bf16(float_of(hi.z), float_of(hi.w)));
+        const int c0 = 8 * (i & 7);
+        const int* key = sm.agg2 + u * kAgg2Stride + c0;
+        uint32_t w[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float y[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ch = c0 + 2 * q + e;
+            y[e] = affine(float_of(key[2 * q + e]) * sm.dir2[ch],
+                          sm.bias2[ch], sm.scale2[ch], sm.shift2[ch]);
+          }
+          w[q] = pack_bf16(y[0], y[1]);
+        }
+        val = make_uint4(w[0], w[1], w[2], w[3]);
       }
       dst[i] = val;
     }
