@@ -223,8 +223,8 @@ def phase_kernels(config, model, frames, device, card):
               f"{int((prep.counts == T).sum())}")
         vfe_err = compare_vfe(got, want)
 
-        # crowded frames: the Car T=35 one, and one at T=100 (above the
-        # first design's limit of 64); tiles of many chunks
+        # crowded frames: the Car T=35 one, and one at T=100; tiles of
+        # many chunks
         cp = prepare(crowded_frame(config, 1800, device), torch.tensor(
             [config.data.max_points], device=device), spec, K)
         cargs = (cp.sorted_planar, cp.run_start, cp.num_voxels, cp.counts, *w)

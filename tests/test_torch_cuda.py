@@ -93,7 +93,7 @@ def _runs(seed, K, T, nv, lengths):
     (70, 35, (0, 57), lambda rng, K: rng.integers(1, 45, K)),
     # every voxel of every tile holds exactly T points: chunks of 7 voxels
     (96, 35, (96,), lambda rng, K: np.full(K, 38)),
-    # crowded at T=100, above the first design's limit of 64
+    # crowded at T=100: chunks of two or three voxels
     (64, 100, (64, 40), lambda rng, K: rng.integers(60, 160, K)),
     # the largest T: chunks of 2 voxels
     (40, 127, (40,), lambda rng, K: np.full(K, 127)),

@@ -42,7 +42,7 @@ def _folded(model):
 @pytest.mark.parametrize("seed,n,T,crowd", [
     pytest.param(0, 1800, 35, 300, id="0-1800"),
     pytest.param(1, 400, 35, 300, id="1-400"),
-    # above the 64 points the first CUDA design took
+    # 100 points per voxel: a crowded voxel spans several warps' rows
     pytest.param(2, 1800, 100, 700, id="2-1800-T100"),
 ])
 def test_vfe_plain_matches_pallas_interpret(seed, n, T, crowd):

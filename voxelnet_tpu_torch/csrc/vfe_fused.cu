@@ -76,8 +76,10 @@ constexpr int kC2 = 64;          // VFE2 units
 constexpr int kIn2 = 32;         // [pointwise 16, aggregate 16]
 constexpr int kRowStride = 24;   // bf16 per staged row: 48 B, 16-byte
                                  // loads without bank conflicts
-constexpr int kAgg1Stride = 17;  // VFE1 max keys per voxel
-constexpr int kAgg2Stride = 72;  // VFE2 max keys per voxel (16 B aligned)
+// keys per voxel of the VFE1 maxima and the VFE2 extremes, padded so that
+// the atomics of neighbouring voxels fall in other banks
+constexpr int kAgg1Stride = 17;
+constexpr int kAgg2Stride = 72;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNegInfKey = (int)0x807fffff;  // key_of(-inf)
 static_assert(kRows >= 2 * kMaxT, "a chunk must hold a whole voxel");
@@ -87,13 +89,11 @@ struct Smem {
   alignas(16) float w2t[kIn2 * kC2];  // bf16-rounded, [input][channel]
   alignas(16) __nv_bfloat16 y1[kRows * kRowStride];      // VFE1 per point
   alignas(16) __nv_bfloat16 agg1b[kTileV * kRowStride];  // VFE1 max per voxel
-  alignas(16) int agg2[kTileV * kAgg2Stride];            // VFE2 max keys
+  int agg2[kTileV * kAgg2Stride];  // keys of the VFE2 extremes, d * dir2
   int agg1[kTileV * kAgg1Stride];                        // VFE1 max keys
   alignas(16) float w1[kC1 * kIn1];  // bf16-rounded
   float a1[kC1 * 3];
-  alignas(16) float bias2[kC2];
-  alignas(16) float scale2[kC2];
-  alignas(16) float shift2[kC2];
+  float bias2[kC2], scale2[kC2], shift2[kC2];
   float dir2[kC2];         // 1 where the VFE2 affine rises with d, else -1
   float px[kRows], py[kRows], pz[kRows];
   float cen[kTileV][3];
