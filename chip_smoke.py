@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's Car inference path and train step on one
-NVIDIA GPU.
+"""Drive the PyTorch port's Car inference path, train step and trainer on
+one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -30,7 +30,18 @@ Phases, each fatal on failure:
      launch counts of the run-copy and dense-grid kernels read around
      those steps; one step at the tiny f32 grid on the card against the
      CPU; CUDA-event step times with the stage split and peak memory at
-     B=2 and B=8, and a profiler kernel table of one step at B=8.
+     B=2 and B=8, and a profiler kernel table of one step at B=8;
+  6. the trainer at full Car width: a mini KITTI tree in a temporary
+     directory (the vendored frames written several times, label files of
+     5 seeded synthetic Car boxes per frame, no calib); cli.train for 2
+     epochs (Car preset, B=2), then --resume to 3 epochs in the same exp
+     dir, cli.eval over the last epoch's label dumps and cli.predict
+     --checkpoint on one frame; checks the exp dir layout, the resumed
+     epoch and step count, finite metrics, valid JSON and the launch
+     counts; then one epoch at B=8 over 72 frames through a Trainer:
+     frames/s by wall clock, the median host gap between steps, the
+     checkpoint save and val-dump times, and the device's idle share over
+     a torch.profiler window of a second epoch.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing it when
 torch sees no CUDA device or any check fails.
@@ -39,17 +50,25 @@ torch sees no CUDA device or any check fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import glob
+import io
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from voxelnet_tpu_torch.cli import eval as eval_cli
 from voxelnet_tpu_torch.cli import predict
+from voxelnet_tpu_torch.cli import train as train_cli
 from voxelnet_tpu_torch.config import get_config
 from voxelnet_tpu_torch.data.sample import sample_frames
 from voxelnet_tpu_torch.kernels import _build, dense_build, run_copy, vfe_fused
@@ -60,6 +79,8 @@ from voxelnet_tpu_torch.ops.voxelize import VoxelGridSpec, prepare
 from voxelnet_tpu_torch.training.train_step import (TRAIN_STAGES,
                                                     create_train_state,
                                                     make_train_step)
+from voxelnet_tpu_torch.training.trainer import Trainer
+from voxelnet_tpu_torch.utils import kitti
 
 SEED = 0
 TINY = {"object": {"x_max": 12.8, "y_min": -6.4, "y_max": 6.4},
@@ -80,6 +101,9 @@ PEAK_FLOP_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # MACs per stored point of the VFE stack: 7->16 and 32->64
 VFE_FLOP_PER_POINT = 2 * (7 * 16 + 32 * 64)
 TRAIN_STEPS = 8
+# phase 6: mini KITTI split sizes (frames), and the B=8 timing epoch's
+TRAINER_FILES = {"training": 6, "validation": 4}
+TIMING_FILES = 72
 # the PR whose design each kernel runs
 DESIGN_PR = {"vfe_fused": 3, "dense_build": 1, "run_copy": 2}
 # timed shapes beside each kernel's Car B=2 one: the fused VFE at the
@@ -385,6 +409,12 @@ def reset_launches():
     vfe_fused.launches = dense_build.launches = run_copy.launches = 0
 
 
+def launch_counts() -> dict:
+    return {"vfe_fused": vfe_fused.launches,
+            "dense_build": dense_build.launches,
+            "run_copy": run_copy.launches}
+
+
 def phase_main_path(model, frames, device):
     """cli.predict's path on the 3 vendored frames at full Car width."""
     print("[4] main path: cli.predict on 3 vendored frames, Car, bf16")
@@ -397,9 +427,7 @@ def phase_main_path(model, frames, device):
                               np.random.default_rng(SEED))
         torch.cuda.synchronize()
         results[thres] = check_detections(det, config, len(frames))
-    launches = {"vfe_fused": vfe_fused.launches,
-                "dense_build": dense_build.launches,
-                "run_copy": run_copy.launches}
+    launches = launch_counts()
     print(f"  valid detections per frame: score_thres 0.96 -> "
           f"{results[0.96]}, 0.0 -> {results[0.0]}; launches {launches}")
     check(launches["vfe_fused"] > 0 and launches["dense_build"] > 0,
@@ -548,9 +576,7 @@ def phase_train(frames, device, card, seed):
         losses.append(m["loss"])
         print(f"  step {i}: " + ", ".join(f"{k} {v}" for k, v in m.items()))
     torch.cuda.synchronize()
-    launches = {"vfe_fused": vfe_fused.launches,
-                "dense_build": dense_build.launches,
-                "run_copy": run_copy.launches}
+    launches = launch_counts()
     print(f"  launches {launches}")
     check(launches["run_copy"] > 0 and launches["dense_build"] > 0,
           f"a kernel was not launched on the train path: {launches}")
@@ -583,8 +609,10 @@ def phase_train_small_reference(frames, device, seed):
     check(norm_rel <= 1e-3, f"tiny train step: grad_norm rel {norm_rel}")
 
 
-def phase_train_timing(frames, device, card, seed):
+def phase_train_timing(frames, device, card, seed) -> dict:
+    """Step times at B=2 and B=8 -> {batch: step-alone frames/s}."""
     config = get_config("Car")
+    fps = {}
     for batch_size in (2, 8):
         batch = train_batch(config, frames, batch_size, seed)
         batch = {k: torch.as_tensor(v, device=device)
@@ -609,6 +637,7 @@ def phase_train_timing(frames, device, card, seed):
             per_stage["total"].append(marks[0][1].elapsed_time(marks[-1][1]))
         med = {s: statistics.median(v) for s, v in per_stage.items()}
         peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        fps[batch_size] = batch_size * 1e3 / med["total"]
         print(f"  train B={batch_size}: step {med['total']} ms CUDA events, "
               f"{statistics.median(host)} ms host, "
               f"{batch_size * 1e3 / med['total']} frames/s, peak {peak} GiB "
@@ -618,10 +647,177 @@ def phase_train_timing(frames, device, card, seed):
         if batch_size == 8:
             print_profile(lambda: step(state, batch))
         del state, batch
+    return fps
+
+
+def write_kitti_split(root: str, split: str, n: int, frames, config,
+                      rng: np.random.Generator) -> None:
+    """root/split/{velodyne,label_2}: frame i is vendored frame i % 3, its
+    labels 5 synthetic Car boxes (camera-frame KITTI lines, mean calib)."""
+    velo = os.path.join(root, split, "velodyne")
+    labels = os.path.join(root, split, "label_2")
+    os.makedirs(velo)
+    os.makedirs(labels)
+    for i in range(n):
+        frames[i % len(frames)].tofile(os.path.join(velo, f"{i:06d}.bin"))
+        gt, mask = synthetic_gt(rng, config, 1)
+        boxes = gt[0][mask[0]]
+        with open(os.path.join(labels, f"{i:06d}.txt"), "w") as f:
+            f.writelines(kitti.boxes_to_label_lines(
+                boxes, ["Car"] * len(boxes), coordinate="lidar"))
+
+
+def run_cli(main, argv) -> str:
+    """main(argv) in this process -> what it printed."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    return out.getvalue()
+
+
+def phase_trainer(frames, device, seed, tmp) -> dict:
+    """cli.train 2 epochs, --resume to 3, cli.eval, cli.predict
+    --checkpoint, at full Car width (B=2) -> trainer launch counts."""
+    print("[6] trainer: cli.train 2 epochs + --resume to 3, cli.eval, "
+          "cli.predict --checkpoint; Car, bf16, B=2")
+    config = get_config("Car")
+    data = os.path.join(tmp, "kitti")
+    rng = np.random.default_rng(seed)
+    for split, n in TRAINER_FILES.items():
+        write_kitti_split(data, split, n, frames, config, rng)
+    exp = os.path.join(tmp, "exp")
+    steps_per_epoch = TRAINER_FILES["training"] // config.train.batch_size
+    cfgs = {}
+    for epochs in (2, 3):
+        cfgs[epochs] = os.path.join(tmp, f"epochs{epochs}.yaml")
+        with open(cfgs[epochs], "w") as f:
+            f.write(f"train: {{num_epochs: {epochs}}}  # Car preset else\n")
+    common = ["--data-dir", data, "--exp-dir", exp, "--device", device.type,
+              "--print-interval", "1", "--summary-interval", "1",
+              "--summary-val-interval", "2"]
+    reset_launches()
+    t0 = time.perf_counter()
+    first = run_cli(train_cli.main, common + ["--cfg", cfgs[2]])
+    resumed = run_cli(train_cli.main, common + [
+        "--cfg", cfgs[3], "--resume", os.path.join(exp, "checkpoints")])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"  cli.train 2 epochs + resume 1: {time.perf_counter() - t0} s, "
+          f"launches {launches}")
+    logged = [[line for line in out.splitlines()
+               if line.startswith(("Train ", "Epoch "))]
+              for out in (first, resumed)]
+    print("\n".join(f"    {line}" for line in sum(logged, [])))
+    check(launches["run_copy"] > 0 and launches["dense_build"] > 0,
+          f"a kernel was not launched by the trainer: {launches}")
+    metrics = [float(v) for line in sum(logged, []) for v in re.findall(
+        r"(?:loss|reg|cls|avg_val_loss) (\S+)", line)]
+    check(len(metrics) == 3 * 3 * steps_per_epoch + 3
+          and all(math.isfinite(v) for v in metrics),
+          f"trainer metrics missing or not finite: {metrics}")
+    check(logged[1][0].startswith("Train 1 @ epoch 3/3")
+          and [x for x in logged[1] if x.startswith("Epoch")][0].startswith(
+              "Epoch 3 "), f"the resumed run did not start at epoch 3: "
+          f"{logged[1][:1]}")
+    check(os.path.exists(os.path.join(exp, "config.yaml")), "no config.yaml")
+    ckpts = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+    check(ckpts == ["0", "1", "2"], f"checkpoints {ckpts}")
+    saved = torch.load(os.path.join(exp, "checkpoints", "2", "state.pt"),
+                       map_location="cpu", weights_only=True)
+    check(saved["step"] == 3 * steps_per_epoch
+          and saved["opt_count"] == 3 * steps_per_epoch,
+          f"step count after resume: {saved['step']}, {saved['opt_count']}")
+    val_tags = sorted(f[:-4] for f in os.listdir(
+        os.path.join(data, "validation", "velodyne")))
+    for epoch in (1, 2, 3):
+        dumped = sorted(f[:-4] for f in os.listdir(
+            os.path.join(exp, "preds", str(epoch), "data")))
+        check(dumped == val_tags, f"preds/{epoch}: {dumped}")
+    ap = json.loads(run_cli(eval_cli.main, [
+        "--preds", os.path.join(exp, "preds", "3", "data"),
+        "--gt", os.path.join(data, "validation", "label_2"),
+        "--iou", "0.5", "--mode", "bev"]))
+    check(ap["frames"] == len(val_tags), f"cli.eval frames {ap['frames']}")
+    print(f"  cli.eval: {json.dumps(ap)}")
+
+    reset_launches()
+    out = run_cli(predict.main, [
+        "--pcl", os.path.join(data, "validation", "velodyne",
+                              val_tags[0] + ".bin"),
+        "--checkpoint", os.path.join(exp, "checkpoints"),
+        "--device", device.type])
+    torch.cuda.synchronize()
+    check(vfe_fused.launches > 0,
+          f"cli.predict --checkpoint launched no vfe_fused: "
+          f"{launch_counts()}")
+    print(f"  cli.predict --checkpoint: {out.splitlines()[0]}; launches "
+          f"{launch_counts()}")
+    return launches
+
+
+def trace_idle_share(logdir: str) -> tuple[float, float, int]:
+    """(device busy ms, span ms, kernels) of the newest torch.profiler
+    Chrome trace in `logdir`: the union of the device's kernel, memcpy and
+    memset intervals, and the span from its first start to its last end."""
+    path = max(glob.glob(os.path.join(logdir, "*.pt.trace.json")),
+               key=os.path.getmtime)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and "dur" in e)
+    check(bool(spans), f"no device events in {path}")
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, (spans[-1][1] - spans[0][0]) / 1e3, sum(
+        1 for e in events if e.get("cat") == "kernel")
+
+
+def phase_trainer_timing(frames, device, seed, tmp, card, step_fps):
+    """One epoch at B=8 over TIMING_FILES frames through a Trainer, then a
+    second one traced by its --profile-steps window."""
+    config = get_config("Car", train={"batch_size": 8, "num_epochs": 2},
+                        val={"batch_size": 2})
+    data = os.path.join(tmp, "kitti8")
+    rng = np.random.default_rng(seed + 1)
+    write_kitti_split(data, "training", TIMING_FILES, frames, config, rng)
+    write_kitti_split(data, "validation", TRAINER_FILES["validation"],
+                      frames, config, rng)
+    steps = TIMING_FILES // 8
+    with Trainer(config, os.path.join(data, "training"),
+                 os.path.join(data, "validation"),
+                 exp_dir=os.path.join(tmp, "exp8"), device=device) as tr:
+        with contextlib.redirect_stdout(io.StringIO()):
+            tr.train(print_interval=1000, summary_interval=1000,
+                     val_interval=1000,
+                     profile_steps=(steps + 2, steps + 6))
+        t = tr.timings
+        busy, span, kernels = trace_idle_share(
+            os.path.join(tr.exp_dir, "logs"))
+    check(t["epoch_steps"] == [steps, steps], f"steps {t['epoch_steps']}")
+    fps = 8 * steps / t["epoch_s"][0]
+    gaps = t["host_gap_s"][:steps - 1]
+    print(f"  trainer B=8: {steps} steps, epoch {t['epoch_s'][0]} s, "
+          f"{fps} frames/s through the trainer (wall clock, pipeline and "
+          f"staging included) vs {step_fps[8]} frames/s step alone "
+          f"(phase 5); first batch after {t['first_batch_s'][0] * 1e3} ms;"
+          f" median host gap between steps "
+          f"{statistics.median(gaps) * 1e3} ms (max {max(gaps) * 1e3} ms); "
+          f"checkpoint save {t['checkpoint_s'][0] * 1e3} ms; val dump "
+          f"{t['val_dump_s'][0] / t['val_dump_frames'][0] * 1e3} ms/frame "
+          f"[{card}]")
+    print(f"  trainer B=8, epoch 2, profiler over steps {steps + 2}-"
+          f"{steps + 5}: device busy {busy} ms of {span} ms ({kernels} "
+          f"kernels), idle share {1 - busy / span} [{card}]")
+    print(f"  epoch 2: {t['epoch_s'][1]} s (profiler on); checkpoint "
+          f"{t['checkpoint_s'][1] * 1e3} ms")
 
 
 def kernel_entry(name, times, errs, bounds, launches, infer_launches,
-                 train_launches) -> dict:
+                 train_launches, trainer_launches) -> dict:
     """One kernel's object of the {"kernels": [...]} line: event and
     profiler device times of the kernel, its plain version and its one
     torch call, its bound, and extra shapes of the same kernel."""
@@ -641,7 +837,8 @@ def kernel_entry(name, times, errs, bounds, launches, infer_launches,
              "replaces": REPLACES[name], "design_pr": DESIGN_PR[name],
              "launches": launches[name],
              "launches_by_path": {"inference": infer_launches[name],
-                                  "train": train_launches[name]},
+                                  "train": train_launches[name],
+                                  "trainer": trainer_launches[name]},
              "max_abs_err": errs[name], **cols("", name),
              "library_ms": lib["ms"] if lib else None,
              "library_device_ms": lib["device_ms"] if lib else None}
@@ -692,7 +889,10 @@ def main(argv=None):
     del model
     train_launches = phase_train(frames, device, card, args.seed)
     phase_train_small_reference(frames, device, args.seed)
-    phase_train_timing(frames, device, card, args.seed)
+    step_fps = phase_train_timing(frames, device, card, args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer_launches = phase_trainer(frames, device, args.seed, tmp)
+        phase_trainer_timing(frames, device, args.seed, tmp, card, step_fps)
 
     # each kernel's count on the path of the slice that brought it: the
     # fused VFE runs only for inference, the others on the train step
@@ -701,7 +901,7 @@ def main(argv=None):
                 "run_copy": train_launches["run_copy"]}
     print(card)
     entries = [kernel_entry(name, times, errs, bounds, launches,
-                            infer_launches, train_launches)
+                            infer_launches, train_launches, trainer_launches)
                for name in KERNELS]
     entries[KERNELS.index("vfe_fused")].update(vfe_info)
     print(json.dumps({"kernels": entries}))

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain torch versions, and the
-inference path and the train step on the card against the CPU. Every test
+"""The port's CUDA kernels against their plain torch versions, the
+inference path and the train step on the card against the CPU, train.remat
+on the card, and the trainer's batch uploads. Every test
 needs an NVIDIA GPU and skips without one. The card's machine has no JAX,
 which tests/conftest.py imports, so run them there with
 
@@ -9,7 +10,8 @@ which tests/conftest.py imports, so run them there with
 import numpy as np
 import pytest
 import torch
-from torch_port_helpers import TINY, assert_bf16_close, cuda_device  # noqa: F401
+from torch_port_helpers import (TINY, assert_bf16_close,  # noqa: F401
+                                cuda_device, merged)
 
 from voxelnet_tpu_torch.config import get_config
 from voxelnet_tpu_torch.kernels import dense_build, run_copy, vfe_fused
@@ -240,13 +242,7 @@ def test_train_step_on_card_matches_cpu(cuda_device):
                                                         make_train_step)
 
     cfg = get_config("Car", **TINY)
-    pts, num = _points(cfg, 3)
-    gt = np.zeros((2, cfg.data.max_gt_boxes, 7), np.float32)
-    gt[:, 0] = [6.25, 0.18, -1.0, 1.56, 1.6, 3.9, 0.05]
-    mask = np.zeros(gt.shape[:2], bool)
-    mask[:, 0] = True
-    batch = {"points": pts, "num_points": num, "gt_boxes": gt,
-             "gt_mask": mask}
+    batch = _train_batch(cfg)
     metrics = {}
     for device in ("cpu", cuda_device):
         state = create_train_state(cfg, _model(cfg, seed=4), device=device)
@@ -260,3 +256,69 @@ def test_train_step_on_card_matches_cpu(cuda_device):
     assert got["loss"] == pytest.approx(want["loss"], rel=1e-4)
     assert got["grad_norm"] == pytest.approx(want["grad_norm"], rel=2e-2)
     assert got["voxels_clipped"] == want["voxels_clipped"]
+
+
+def _train_batch(cfg):
+    pts, num = _points(cfg, 3)
+    gt = np.zeros((2, cfg.data.max_gt_boxes, 7), np.float32)
+    gt[:, 0] = [6.25, 0.18, -1.0, 1.56, 1.6, 3.9, 0.05]
+    mask = np.zeros(gt.shape[:2], bool)
+    mask[:, 0] = True
+    return {"points": pts, "num_points": num, "gt_boxes": gt,
+            "gt_mask": mask}
+
+
+def test_remat_on_card_matches_no_remat(cuda_device):
+    """train.remat seams/full on the card: the same loss and BN running
+    stats as 'none' from the same weights (the recompute runs on the
+    backward's device thread and must leave the running stats alone);
+    grad norm within 1e-3 (cuDNN's backward may pick other algorithms)."""
+    from voxelnet_tpu_torch.training.train_step import (create_train_state,
+                                                        make_train_step)
+
+    batch = _train_batch(get_config("Car", **TINY))
+    got = {}
+    for remat in ("none", "seams", "full"):
+        cfg = get_config("Car", **merged(TINY, train={"remat": remat}))
+        state = create_train_state(cfg, _model(cfg, seed=4),
+                                   device=cuda_device)
+        _, m = make_train_step(cfg, device=cuda_device)(state, batch)
+        stats = {k: v.cpu() for k, v in state.model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        got[remat] = ({k: float(v) for k, v in m.items()}, stats)
+    want_m, want_s = got["none"]
+    for remat in ("seams", "full"):
+        m, s = got[remat]
+        assert m["loss"] == pytest.approx(want_m["loss"], rel=1e-6), remat
+        assert m["grad_norm"] == pytest.approx(want_m["grad_norm"],
+                                               rel=1e-3), remat
+        for k, v in want_s.items():
+            torch.testing.assert_close(s[k], v, rtol=1e-6, atol=1e-7,
+                                       msg=f"{remat} {k}")
+
+
+def test_trainer_stages_batches_on_the_card(cuda_device, tmp_path):
+    """The trainer's uploads (pinned copies on its side stream, the step's
+    stream waiting on them) give back the host batch, through the staging
+    thread as well."""
+    from torch_port_helpers import write_mini_kitti
+
+    from voxelnet_tpu_torch.data.dataset import make_batch_iterator
+    from voxelnet_tpu_torch.training.trainer import Stager, Trainer
+
+    data = write_mini_kitti(str(tmp_path / "kitti"))
+    cfg = get_config("Car", **TINY)
+    with Trainer(cfg, data + "/training", data + "/validation",
+                 exp_dir=str(tmp_path / "exp"), device=cuda_device) as tr:
+        batches = list(make_batch_iterator(tr.train_ds, 2, seed=1))
+        stager = Stager(iter(batches * 3), tr._host_to_device, depth=2)
+        staged = [(b, tr._on_step_stream(s)) for b, s in stager]
+        staged.append((batches[0], tr._device_batch(batches[0])))
+        torch.cuda.synchronize()
+        for host, dev in staged:
+            arrays = {k: v for k, v in host.items()
+                      if isinstance(v, np.ndarray)}
+            assert dev.keys() == arrays.keys()
+            for k, v in arrays.items():
+                assert dev[k].device.type == "cuda"
+                np.testing.assert_array_equal(dev[k].cpu().numpy(), v)

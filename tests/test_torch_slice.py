@@ -101,21 +101,38 @@ def test_stage_points_matches_jax_pipeline():
 
 
 def test_port_imports_no_jax():
-    """The package, its CLI, its train step and the chip smoke script load
-    without JAX or flax and without any module of the JAX package, under
-    its name or loaded from a file under voxelnet_tpu/ (conftest.py has
-    imported JAX here, so check in a subprocess)."""
+    """The package, its CLIs, its train step, trainer, checkpoints,
+    evaluator and dataset, and the chip smoke script load without JAX,
+    flax, optax or orbax and without any module of the JAX package, under
+    its name or loaded from a file under voxelnet_tpu/, with yaml and cv2
+    unimportable (the card's machine has neither). conftest.py has
+    imported JAX here, so check in a subprocess."""
     code = ("import os, sys, runpy\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('yaml', 'cv2'):\n"
+            "            raise ImportError(f'{name} is blocked')\n"
+            "sys.meta_path.insert(0, Block())\n"
             "import voxelnet_tpu_torch.cli.predict\n"
+            "import voxelnet_tpu_torch.cli.train\n"
+            "import voxelnet_tpu_torch.cli.eval\n"
             "import voxelnet_tpu_torch.convert\n"
+            "import voxelnet_tpu_torch.data.dataset\n"
+            "import voxelnet_tpu_torch.data.pipeline\n"
             "import voxelnet_tpu_torch.training.train_step\n"
+            "import voxelnet_tpu_torch.training.trainer\n"
+            "import voxelnet_tpu_torch.training.checkpoint\n"
+            "import voxelnet_tpu_torch.training.evaluate\n"
             "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
+            "from voxelnet_tpu_torch.config import get_config\n"
+            "get_config('Car').dump_yaml()\n"
             "ref = os.path.join(os.path.realpath('voxelnet_tpu'), '')\n"
             "def from_ref(mod):\n"
             "    f = getattr(mod, '__file__', None)\n"
             "    return bool(f) and os.path.realpath(f).startswith(ref)\n"
             "bad = [m for m, mod in list(sys.modules.items())\n"
-            "       if m.split('.')[0] in ('jax', 'flax', 'jaxlib',\n"
+            "       if m.split('.')[0] in ('jax', 'flax', 'jaxlib', 'optax',\n"
+            "                              'orbax', 'yaml', 'cv2',\n"
             "                              'voxelnet_tpu')\n"
             "       or from_ref(mod)]\n"
             "assert not bad, bad\n")

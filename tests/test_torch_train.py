@@ -11,8 +11,9 @@ import numpy as np
 import optax
 import pytest
 import torch
-from torch_port_helpers import (TINY, configs, jax_variables, merged,
-                                random_points, torch_model)
+from torch_port_helpers import (TINY, configs, init_scale_biases,
+                                jax_variables, merged, random_points,
+                                torch_model)
 
 from voxelnet_tpu.ops import losses as jax_losses
 from voxelnet_tpu.ops import targets as jax_targets
@@ -99,8 +100,8 @@ def test_resolver_maps_train_knobs_to_one_path():
 
 
 @pytest.mark.parametrize("overrides,match", [
-    ({"train": {"remat": "seams"}}, "remat"),
-    ({"train": {"remat": "full"}}, "remat"),
+    ({"train": {"remat": "seam"}}, "remat"),
+    ({"train": {"remat": "all"}}, "remat"),
     ({"data": {"train_vfe_backend": "nope"}}, "train_vfe_backend"),
     ({"data": {"voxelizer_backend": "nope"}}, "voxelizer_backend"),
 ])
@@ -113,8 +114,63 @@ def test_resolver_refuses_train_knobs(overrides, match):
 
 
 def test_remat_is_refused_only_for_training():
-    cfg = get_config("Car", train={"remat": "full"})
+    """An unknown train.remat is the train step's error; the inference
+    resolver does not read it, and the JAX package's values all train."""
+    cfg = get_config("Car", train={"remat": "nope"})
     assert resolve_plan(cfg) == resolve_plan(get_config("Car"))
+    for value in ("none", "seams", "full"):
+        cfg = get_config("Car", train={"remat": value})
+        assert resolve_plan(cfg, train=True) == resolve_plan(cfg)
+
+
+# remat cases train on a 10 x 32 x 32 grid (a quarter of TINY's cells)
+# with two torch threads: the test runner's workers share the cores
+REMAT = merged(TINY, object={"x_min": 3.2, "x_max": 9.6, "y_min": -3.2,
+                             "y_max": 3.2})
+
+
+def _remat_step(remat):
+    from voxelnet_tpu_torch.models.init import randomize_bn_
+    from voxelnet_tpu_torch.models.voxelnet import build_model
+
+    cfg = get_config("Car", **merged(REMAT, train={"remat": remat}))
+    model = randomize_bn_(build_model(cfg, seed=17),
+                          torch.Generator().manual_seed(18))
+    before = model.state_dict()["middle.ConvBlock3D_0.BatchNorm_0."
+                                "running_mean"].clone()
+    state = create_train_state(cfg, model, device="cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        _, metrics = make_train_step(cfg, device="cpu")(
+            state, _batch(cfg, seed=17, n=1200))
+    finally:
+        torch.set_num_threads(threads)
+    return ({k: float(v) for k, v in metrics.items()},
+            state.model.state_dict(), before)
+
+
+@pytest.fixture(scope="module")
+def no_remat_step():
+    """(metrics, state_dict, running mean before) of one step at remat
+    'none'."""
+    return _remat_step("none")
+
+
+@pytest.mark.parametrize("remat", ["seams", "full"])
+def test_remat_matches_no_remat(no_remat_step, remat):
+    """train.remat recomputes the dense grid + middle and the RPN (seams)
+    or the whole forward (full) in backward: the same metrics, updated
+    weights and BN running stats, bit for bit, as 'none' (the recompute
+    must not move the running stats a second time)."""
+    want, want_sd, before = no_remat_step
+    got, got_sd, _ = _remat_step(remat)
+    assert got == want
+    for k, v in want_sd.items():
+        assert torch.equal(got_sd[k], v), k
+    # the step moved the running stats
+    key = "middle.ConvBlock3D_0.BatchNorm_0.running_mean"
+    assert not torch.equal(want_sd[key], before)
 
 
 def test_cuda_step_without_a_card_raises():
@@ -305,24 +361,6 @@ F64 = merged(TINY, train={"compute_dtype": "float64"},
              data={"max_voxels": 2048, "max_points": 8192})
 
 
-def _init_scale_biases(variables, seed):
-    """Biases uniform in +-1/sqrt(fan_in), the scale of the real init
-    (models/init.py), in place of the helper's +-0.1."""
-    rng = np.random.default_rng(seed)
-
-    def walk(tree):
-        for sub in tree.values():
-            if isinstance(sub, dict) and "kernel" in sub:
-                bound = 1.0 / np.sqrt(np.prod(sub["kernel"].shape[:-1]))
-                sub["bias"] = rng.uniform(-bound, bound, sub["bias"].shape
-                                          ).astype(np.float32)
-            elif isinstance(sub, dict):
-                walk(sub)
-
-    walk(variables["params"])
-    return variables
-
-
 @pytest.fixture(scope="module")
 def jax_f64_step():
     """One JAX make_train_step at float64 (x64 on for its trace and run)
@@ -334,7 +372,7 @@ def jax_f64_step():
         make_train_step as jax_make_train_step
 
     jcfg, _ = configs(overrides=F64)
-    variables = _init_scale_biases(jax_variables(jcfg, seed=21), 21)
+    variables = init_scale_biases(jax_variables(jcfg, seed=21), 21)
     batch = _batch(jcfg, seed=21, n=8000)
     tx = make_optimizer(jcfg, STEPS_PER_EPOCH)
     jax.config.update("jax_enable_x64", True)

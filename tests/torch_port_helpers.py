@@ -80,6 +80,24 @@ def jax_variables(cfg, seed: int = 0):
     return randomize_bn(variables, seed + 100)
 
 
+def init_scale_biases(variables, seed):
+    """Biases uniform in +-1/sqrt(fan_in), the scale of the real init
+    (models/init.py), in place of the helper's +-0.1."""
+    rng = np.random.default_rng(seed)
+
+    def walk(tree):
+        for sub in tree.values():
+            if isinstance(sub, dict) and "kernel" in sub:
+                bound = 1.0 / np.sqrt(np.prod(sub["kernel"].shape[:-1]))
+                sub["bias"] = rng.uniform(-bound, bound, sub["bias"].shape
+                                          ).astype(np.float32)
+            elif isinstance(sub, dict):
+                walk(sub)
+
+    walk(variables["params"])
+    return variables
+
+
 def torch_model(port_cfg, variables):
     from voxelnet_tpu_torch.convert import from_jax_variables
     from voxelnet_tpu_torch.models.voxelnet import VoxelNet
@@ -122,3 +140,44 @@ def cuda_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
+
+
+# KITTI label lines of the mini-KITTI trees: two Cars, a Van, a
+# Pedestrian and a DontCare region (camera frame, mean calib)
+LABEL_LINES = (
+    "Car 0.00 0 -1.58 587.01 173.33 614.12 200.12 1.65 1.67 3.64 -0.65 "
+    "1.71 6.70 -1.59\n",
+    "Car 0.20 1 1.21 387.01 170.40 450.90 214.00 1.52 1.61 3.92 -2.45 "
+    "1.69 8.21 1.12\n",
+    "Van 0.00 2 -1.02 100.00 150.00 200.00 220.00 2.10 1.90 5.00 2.90 "
+    "1.80 10.50 -0.31\n",
+    "Pedestrian 0.00 0 0.33 700.00 160.00 720.00 230.00 1.70 0.60 0.80 "
+    "1.40 1.70 5.10 0.20\n",
+    "DontCare -1 -1 -10 500.00 170.00 520.00 190.00 -1 -1 -1 -1000 -1000 "
+    "-1000 -10\n",
+)
+
+
+def write_mini_kitti(root, splits=(("training", 4), ("validation", 2)),
+                     n_points=1200, seed=0, labels=LABEL_LINES[:1]):
+    """A KITTI tree (velodyne/, label_2/, image_2/ per split) at the tiny
+    grid, as tests/test_trainer_epoch_val.py's fixture builds it: frame i
+    holds `n_points` uniform points over the grid box (numpy, `seed`) and
+    the label lines `labels`."""
+    import os
+
+    rng = np.random.default_rng(seed)
+    for split, n in splits:
+        for sub in ("velodyne", "label_2", "image_2"):
+            os.makedirs(os.path.join(root, split, sub))
+        for i in range(n):
+            pts = np.concatenate([
+                rng.uniform([0, -6.4, -3], [12.8, 6.4, 1], (n_points, 3)),
+                rng.uniform(0, 1, (n_points, 1))], axis=1).astype(np.float32)
+            pts.tofile(os.path.join(root, split, "velodyne", f"{i:06d}.bin"))
+            with open(os.path.join(root, split, "label_2", f"{i:06d}.txt"),
+                      "w") as f:
+                f.writelines(labels)
+            open(os.path.join(root, split, "image_2", f"{i:06d}.png"),
+                 "wb").close()
+    return root

@@ -5,10 +5,14 @@ subsample to max_points, run the detector, print the boxes.
     python -m voxelnet_tpu_torch.cli.predict --pcl sample:0 --device cuda
     python -m voxelnet_tpu_torch.cli.predict --pcl frame.bin --device cpu \\
         --weights converted.npz
+    python -m voxelnet_tpu_torch.cli.predict --pcl sample:0 \\
+        --checkpoint exps/.../checkpoints [--cfg overrides.yaml]
 
---weights takes a .npz of JAX variables (convert.save_npz); without it the
-weights are a random init from --seed, and "0 detections" is the expected
-output.
+--checkpoint takes a checkpoint of the port's trainer (a checkpoints root,
+whose latest step is read, or one step dir); --weights a .npz of JAX
+variables (convert.save_npz). Without either the weights are a random init
+from --seed, and "0 detections" is the expected output. --cfg reads the
+YAML subset of `voxelnet_tpu_torch/utils/yaml_subset.py`.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from voxelnet_tpu_torch.models.voxelnet import (Detections, build_model,
                                                 make_inference_fn)
 from voxelnet_tpu_torch.ops.voxelize import (VoxelGridSpec, crop_points,
                                              pad_points)
+from voxelnet_tpu_torch.training.checkpoint import load_variables
 
 
 def load_clouds(pcl: str) -> list[tuple[str, np.ndarray]]:
@@ -69,9 +74,12 @@ def predict(infer, model, clouds, config,
     return infer(model, points, num_points)
 
 
-def load_model(config, weights: str | None, seed: int, device):
+def load_model(config, weights: str | None, seed: int, device,
+               checkpoint: str | None = None):
     model = build_model(config, seed=seed)
-    if weights:
+    if checkpoint:
+        model.load_state_dict(load_variables(checkpoint, config))
+    elif weights:
         model.load_state_dict(from_jax_variables(load_npz(weights)))
     return model.to(device).eval()
 
@@ -81,17 +89,25 @@ def main(argv=None):
     p.add_argument("--pcl", required=True,
                    help="sample[:N], a .bin file, or a directory of them")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    p.add_argument("--weights", default=None,
-                   help=".npz of JAX variables (convert.save_npz)")
+    weights = p.add_mutually_exclusive_group()
+    weights.add_argument("--checkpoint", default=None,
+                         help="checkpoints root or step dir of the port's "
+                              "trainer")
+    weights.add_argument("--weights", default=None,
+                         help=".npz of JAX variables (convert.save_npz)")
     p.add_argument("--seed", type=int, default=0,
                    help="random-init seed when --weights is not given")
     p.add_argument("--class-name", default="Car")
+    p.add_argument("--cfg", default=None, help="YAML config override file")
     args = p.parse_args(argv)
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: torch sees no CUDA device")
     config = get_config(args.class_name)
-    model = load_model(config, args.weights, args.seed, args.device)
+    if args.cfg:
+        config = config.merge_from_file(args.cfg)
+    model = load_model(config, args.weights, args.seed, args.device,
+                       args.checkpoint)
     infer = make_inference_fn(config, args.device)
     rng = np.random.default_rng(0)
     for name, cloud in load_clouds(args.pcl):

@@ -6,8 +6,9 @@ backend resolver.
 The copy is held to the original by `tests/test_torch_train.py`
 (`to_dict()` equal for every preset and for override sets), so the two
 cannot drift apart. Overrides go through `get_config(class_name,
-**overrides)`; the copy has no YAML loading (the card's machine has no
-pyyaml).
+**overrides)` or an override file (`merge_from_file`): the card's machine
+has no pyyaml, so override files and the `dump_yaml` snapshot use the
+subset of YAML that `utils/yaml_subset.py` reads and writes.
 """
 
 from __future__ import annotations
@@ -15,6 +16,10 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field, replace
 from typing import Any, Mapping, NamedTuple
+
+import numpy as np
+
+from voxelnet_tpu_torch.utils import yaml_subset
 
 # mean KITTI calibration matrices (per-frame calib files override them)
 _T_VELO_2_CAM = (
@@ -201,6 +206,15 @@ class CalibConfig:
     r_rect_0: tuple = _R_RECT_0
     matrix_p2: tuple = _MATRIX_P2
 
+    def T_VELO_2_CAM(self) -> np.ndarray:
+        return np.asarray(self.t_velo_2_cam, dtype=np.float64)
+
+    def R_RECT_0(self) -> np.ndarray:
+        return np.asarray(self.r_rect_0, dtype=np.float64)
+
+    def MATRIX_P2(self) -> np.ndarray:
+        return np.asarray(self.matrix_p2, dtype=np.float64)
+
 
 @dataclass(frozen=True)
 class CompatConfig:
@@ -228,6 +242,18 @@ class VoxelNetConfig:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+    def dump_yaml(self) -> str:
+        return yaml_subset.dump(self.to_dict())
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "VoxelNetConfig":
+        return _merge_dataclass(cls(), d)
+
+    def merge_from_file(self, path: str) -> "VoxelNetConfig":
+        with open(path) as f:
+            overrides = yaml_subset.load(f.read()) or {}
+        return _merge_dataclass(self, overrides)
 
 
 def _merge_dataclass(obj, overrides: Mapping[str, Any]):
@@ -268,6 +294,7 @@ TRAIN_VFE_BACKENDS = ("auto", "xla", "planar")
 VOXELIZER_BACKENDS = ("auto", "xla", "gather", "pallas", "pallas_interpret",
                       "planar", "planar_interpret")
 COMPUTE_DTYPES = ("bfloat16", "float32", "float64")
+REMATS = ("none", "seams", "full")
 
 
 class Plan(NamedTuple):
@@ -294,8 +321,9 @@ def resolve_plan(config: VoxelNetConfig, train: bool = False) -> Plan:
     port runs NCDHW convs, where the depth->BEV fold is a reshape, and one
     run-copy kernel for every table layout. Raises where the port cannot
     give the configured semantics: the reference's ghost-activation VFE
-    (`compat.bn_over_padding`), any mesh sharding (the port runs on one
-    device) and, for `train=True`, `train.remat` other than 'none'.
+    (`compat.bn_over_padding`) and any mesh sharding (the port runs on one
+    device); for `train=True`, a `train.remat` other than 'none', 'seams'
+    or 'full'.
     """
     data = config.data
     _check("middle_backend", data.middle_backend, MIDDLE_BACKENDS)
@@ -320,9 +348,8 @@ def resolve_plan(config: VoxelNetConfig, train: bool = False) -> Plan:
         raise ValueError(
             f"train.compute_dtype={config.train.compute_dtype!r} — expected "
             f"one of {COMPUTE_DTYPES}")
-    if train and config.train.remat != "none":
+    if train and config.train.remat not in REMATS:
         raise ValueError(
-            f"train.remat={config.train.remat!r}: the port's train step "
-            "runs without rematerialization ('none')")
+            f"train.remat={config.train.remat!r} — expected one of {REMATS}")
     return Plan(fold_bn=data.fold_bn != "off",
                 dtype=config.train.compute_dtype)

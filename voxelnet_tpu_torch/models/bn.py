@@ -14,15 +14,38 @@ dtype=float32)` forward here, as the JAX package's modules use it:
   * in train mode the running stats move as 0.9 * old + 0.1 * batch with
     the biased variance (torch's own BN uses the unbiased one, and its
     momentum 0.1 is flax's 0.9); in eval mode the running stats normalise.
+
+`running_stats_frozen()` holds the running stats still: the recompute of a
+`torch.utils.checkpoint` region (train.remat) runs the forward a second
+time, and one train step must move them once.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 from torch import nn
 
 MOMENTUM = 0.9    # flax convention: the weight of the old running value
 EPS = 1e-5
+
+# per thread: autograd runs a checkpoint's recompute on the thread that
+# executes the backward, inside the context this sets
+_frozen = threading.local()
+
+
+@contextlib.contextmanager
+def running_stats_frozen():
+    """Within it, train-mode BN normalises with batch statistics but
+    leaves the running stats as they are."""
+    before = getattr(_frozen, "on", False)
+    _frozen.on = True
+    try:
+        yield
+    finally:
+        _frozen.on = before
 
 
 def flax_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
@@ -48,11 +71,12 @@ def flax_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
             mean = torch.where(m, xs, zero).sum(axes) / n
             mean2 = torch.where(m, xs * xs, zero).sum(axes) / n
         var = torch.clamp(mean2 - mean * mean, min=0.0)
-        with torch.no_grad():
-            bn.running_mean.copy_(MOMENTUM * bn.running_mean
-                                  + (1 - MOMENTUM) * mean)
-            bn.running_var.copy_(MOMENTUM * bn.running_var
-                                 + (1 - MOMENTUM) * var)
+        if not getattr(_frozen, "on", False):
+            with torch.no_grad():
+                bn.running_mean.copy_(MOMENTUM * bn.running_mean
+                                      + (1 - MOMENTUM) * mean)
+                bn.running_var.copy_(MOMENTUM * bn.running_var
+                                     + (1 - MOMENTUM) * var)
     else:
         mean, var = bn.running_mean, bn.running_var
     wide = torch.promote_types(x.dtype, torch.float32)

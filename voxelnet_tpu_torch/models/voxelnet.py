@@ -11,6 +11,7 @@ the module is in: the train and eval steps (training/train_step.py) run it.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 import time
@@ -19,8 +20,10 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from voxelnet_tpu_torch.config import VoxelNetConfig, resolve_plan
+from voxelnet_tpu_torch.models.bn import running_stats_frozen
 from voxelnet_tpu_torch.models.bn_fold import fold_bn_
 from voxelnet_tpu_torch.models.init import init_
 from voxelnet_tpu_torch.models.middle import MiddleLayers, depth_out
@@ -46,18 +49,46 @@ class VoxelNet(nn.Module):
         self.middle = MiddleLayers(cin=128)
         self.rpn = RPN(cin=64 * depth_out(obj.depth),
                        block1_stride=config.rpn.block1_stride)
+        self.remat = config.train.remat
 
     def forward(self, features: torch.Tensor, coords: torch.Tensor,
                 counts: torch.Tensor):
         """features (B, K, T, 7) f32, coords (B, K, 3), counts (B, K) in
         the voxelizer's order -> (cls logits (B, H', W', 2) f32, reg
         (B, H', W', 14) f32): table VFE, dense grid (kernel forward, row
-        gather backward), Conv3D middle, RPN, in the compute dtype."""
+        gather backward), Conv3D middle, RPN, in the compute dtype.
+
+        With gradients on, `train.remat` (the JAX package's seams,
+        `voxelnet_tpu/models/voxelnet.py:110-112, 157-159`) recomputes in
+        backward what it does not keep: 'seams' keeps the voxelwise table
+        and the BEV map and recomputes the dense grid + middle and the RPN;
+        'full' recomputes the whole forward."""
+        if self.remat == "full" and torch.is_grad_enabled():
+            return _recomputed(self._forward, features, coords, counts)
+        return self._forward(features, coords, counts)
+
+    def _forward(self, features, coords, counts):
+        seams = self.remat == "seams" and torch.is_grad_enabled()
         voxelwise = self.feature_net.table(features, counts,
                                            self.compute_dtype)
+        if seams:
+            bev = _recomputed(self._middle, voxelwise, coords, counts)
+            return _recomputed(self.rpn, bev)
+        return self.rpn(self._middle(voxelwise, coords, counts))
+
+    def _middle(self, voxelwise, coords, counts):
         dense = scatter_to_dense_streamed(voxelwise, coords, counts,
                                           self.grid_dzyx)
-        return self.rpn(self.middle(dense))
+        return self.middle(dense)
+
+
+def _recomputed(fn, *args):
+    """fn(*args) under torch.utils.checkpoint: its activations are
+    recomputed in backward, with the BN running stats held still then (the
+    forward already moved them)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          running_stats_frozen()))
 
 
 class Detections(NamedTuple):

@@ -2,7 +2,8 @@
 and the explicit (B, K, T, 7) voxel table of the train and eval steps.
 
 Counterpart of `voxelnet_tpu/ops/voxelize.py` (`VoxelGridSpec`,
-`in_grid_mask`, `pad_points`, `POINT_I16_SCALES`/`dequantize_points_i16`,
+`in_grid_mask`, `pad_points`, `POINT_I16_SCALES` with
+`quantize_points_i16`/`dequantize_points_i16`,
 `_sort_stage`, `_pallas_prepare` with the planar layout, `_decode_zyx`,
 `_finalize`, and `voxelize_batch_jax` on the run-copy table). The
 integer outputs match the JAX function exactly: the same f32 shift +
@@ -59,6 +60,14 @@ class Voxels(NamedTuple):
     counts: torch.Tensor          # (B, K) i32, stored points (<= T)
     num_voxels: torch.Tensor      # (B,) i32, occupied voxels kept (<= K)
     num_voxels_raw: torch.Tensor  # (B,) i32, occupied voxels before the cap
+
+
+def quantize_points_i16(points: np.ndarray) -> np.ndarray:
+    """Host side: (..., 4) f32 points -> the int16 wire format (half the
+    bytes of f32 on every host copy and the upload)."""
+    scales = np.asarray(POINT_I16_SCALES, np.float32)
+    q = np.rint(np.asarray(points, np.float32) / scales)
+    return np.clip(q, -32768, 32767).astype(np.int16)
 
 
 def dequantize_points_i16(points: torch.Tensor) -> torch.Tensor:
