@@ -41,7 +41,22 @@ Phases, each fatal on failure:
      counts; then one epoch at B=8 over 72 frames through a Trainer:
      frames/s by wall clock, the median host gap between steps, the
      checkpoint save and val-dump times, and the device's idle share over
-     a torch.profiler window of a second epoch.
+     a torch.profiler window of a second epoch;
+  7. data parallel, workers of this script (`--dp-worker`) in a process
+     group: (a) two ranks on cuda:0 over gloo (NCCL refuses two ranks on
+     one card) at full Car width, bf16, global B=4 (2 a rank), 3 steps of
+     make_train_step: step 1's loss and pre-clip grad norm against one
+     process at B=4 on the card, every metric finite, the ranks'
+     parameters bit-identical after step 3, the run-copy and dense-grid
+     launch counts of each rank, the all-reduces of a step and their
+     bytes, the gloo all-reduce's time; (b) the same step at the tiny f32
+     grid against one process; (c) `torch.distributed.run --nproc_per_node
+     2 -m voxelnet_tpu_torch.cli.train --dist-backend gloo --device cuda:0`
+     for one epoch on phase 6's KITTI tree: the exp dir, one checkpoint,
+     label dumps of every val frame, cli.eval over them; (d) where torch
+     sees two cards or more, NCCL over two cards at Car B=8 a card: step
+     time and frames/s a card beside phase 5's one-card step (otherwise it
+     says it did not run).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing it when
 torch sees no CUDA device or any check fails.
@@ -76,6 +91,7 @@ from voxelnet_tpu_torch.models.init import randomize_bn_
 from voxelnet_tpu_torch.models.voxelnet import (STAGES, build_model,
                                                 make_inference_fn)
 from voxelnet_tpu_torch.ops.voxelize import VoxelGridSpec, prepare
+from voxelnet_tpu_torch.parallel import distributed
 from voxelnet_tpu_torch.training.train_step import (TRAIN_STAGES,
                                                     create_train_state,
                                                     make_train_step)
@@ -104,6 +120,12 @@ TRAIN_STEPS = 8
 # phase 6: mini KITTI split sizes (frames), and the B=8 timing epoch's
 TRAINER_FILES = {"training": 6, "validation": 4}
 TIMING_FILES = 72
+# phase 7: steps of the data-parallel runs, and the timed ones of (d)
+DP_STEPS = 3
+DP_TIMED_STEPS = 5
+DP_TIMEOUT_S = 600
+# the port's Car model: its f32 parameters, the gradient all-reduce's size
+CAR_PARAMS = 6_809_392
 # the PR whose design each kernel runs
 DESIGN_PR = {"vfe_fused": 3, "dense_build": 1, "run_copy": 2}
 # timed shapes beside each kernel's Car B=2 one: the fused VFE at the
@@ -816,8 +838,258 @@ def phase_trainer_timing(frames, device, seed, tmp, card, step_fps):
           f"{t['checkpoint_s'][1] * 1e3} ms")
 
 
+def dp_config(overrides: dict, world: int):
+    return get_config("Car", **dict(overrides, system={
+        "num_data_shards": world}))
+
+
+def dp_run(run: dict, frames, device) -> dict:
+    """One data-parallel run of a worker: `steps` train steps on this
+    rank's rows of a seeded global batch, then `timed` more under
+    CUDA-event marks; metrics, launch counts, the all-reduces of one step,
+    the ranks' agreement and times."""
+    world = distributed.world_size()
+    config = dp_config(run["overrides"], world)
+    batch = train_batch(config, frames, run["batch"], run["seed"])
+    local = run["batch"] // world
+    lo = distributed.rank() * local
+    batch = {k: torch.as_tensor(v[lo:lo + local], device=device)
+             for k, v in batch.items()}
+    state = create_train_state(config, build_model(config, seed=SEED),
+                               device=device)
+    distributed.broadcast_state_(state.model)
+    step = make_train_step(config, device)
+    reset_launches()
+    distributed.all_reduces = distributed.all_reduce_bytes = 0
+    metrics, per_step = [], None
+    for i in range(run["steps"]):
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            per_step = (distributed.all_reduces,
+                        distributed.all_reduce_bytes)
+    torch.cuda.synchronize()
+    out = {"metrics": metrics, "launches": launch_counts(),
+           "all_reduces_per_step": per_step[0],
+           "all_reduce_bytes_per_step": per_step[1],
+           "disagree": distributed.ranks_disagree(state.model)}
+    if run["timed"]:
+        totals, reduce_ms = [], []
+        for _ in range(run["timed"]):
+            marks = []
+            step(state, batch, marks)
+            torch.cuda.synchronize()
+            totals.append(marks[0][1].elapsed_time(marks[-1][1]))
+            at = dict(marks)
+            reduce_ms.append(at["backward"].elapsed_time(at["all_reduce"]))
+        grads = torch.zeros(sum(p.numel() for p in state.model.parameters()),
+                            device=device)
+        times = []
+        for _ in range(7):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            distributed.all_reduce_([grads])
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        out.update(step_ms=statistics.median(totals),
+                   grad_all_reduce_in_step_ms=statistics.median(reduce_ms),
+                   grad_all_reduce_ms=statistics.median(times[2:]),
+                   grad_all_reduce_bytes=grads.numel() * 4)
+    del state
+    return out
+
+
+def dp_worker(job_path: str, rank: int) -> None:
+    """A rank of a phase 7 run: join the job's group, run its runs, write
+    the results as JSON next to the job."""
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = distributed.initialize(
+        job["init"], job["world"], rank, backend=job["backend"],
+        device=job["device"] or f"cuda:{rank}", timeout_s=DP_TIMEOUT_S)
+    try:
+        frames = sample_frames()
+        out = {run["name"]: dp_run(run, frames, device)
+               for run in job["runs"]}
+    finally:
+        distributed.shutdown()
+    with open(f"{job_path}.out{rank}", "w") as f:
+        json.dump(out, f)
+
+
+def run_dp_workers(tmp: str, name: str, backend: str, device: str | None,
+                   runs: list[dict], world: int = 2) -> list[dict]:
+    """`world` worker processes of this script on `runs` -> each rank's
+    results; fatal if one fails or outlasts DP_TIMEOUT_S."""
+    job = os.path.join(tmp, f"{name}.json")
+    with open(job, "w") as f:
+        json.dump({"init": "file://" + os.path.join(tmp, f"{name}.rdv"),
+                   "world": world, "backend": backend, "device": device,
+                   "runs": runs}, f)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-worker", job,
+         "--rank", str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"{name}: rank {r} exited {p.returncode}:"
+              f"\n{log[-3000:]}")
+    outs = []
+    for r in range(world):
+        with open(f"{job}.out{r}") as f:
+            outs.append(json.load(f))
+    return outs
+
+
+def one_process_step(overrides: dict, frames, device, batch: int,
+                     seed: int) -> dict:
+    config = dp_config(overrides, 1)
+    state = create_train_state(config, build_model(config, seed=SEED),
+                               device=device)
+    _, m = make_train_step(config, device)(
+        state, train_batch(config, frames, batch, seed))
+    return finite_metrics(m)
+
+
+def check_ranks_agree(name: str, outs: list[dict]) -> None:
+    """Every rank's metrics finite and equal to rank 0's, its parameters
+    bit-equal to rank 0's, both kernels of the train path launched."""
+    for r, o in enumerate(outs):
+        check(o["disagree"] == 0, f"{name}: ranks' parameters differ")
+        for m in o["metrics"]:
+            check(all(math.isfinite(v) for v in m.values()),
+                  f"{name}: non-finite metrics on rank {r}: {m}")
+        check(o["metrics"] == outs[0]["metrics"],
+              f"{name}: rank {r} metrics differ from rank 0's")
+        check(o["launches"]["run_copy"] > 0
+              and o["launches"]["dense_build"] > 0,
+              f"{name}: rank {r} launched a kernel no time: {o['launches']}")
+
+
+def check_dp_run(name: str, outs: list[dict], want: dict, loss_rel: float,
+                 norm_rel: float) -> None:
+    """check_ranks_agree, and step 1 against one process at the same
+    global batch."""
+    check_ranks_agree(name, outs)
+    got = outs[0]["metrics"][0]
+    lr = abs(got["loss"] / want["loss"] - 1)
+    nr = abs(got["grad_norm"] / want["grad_norm"] - 1)
+    print(f"  {name}: step 1 loss {got['loss']} vs {want['loss']} one "
+          f"process (rel {lr}), pre-clip grad_norm {got['grad_norm']} vs "
+          f"{want['grad_norm']} (rel {nr}); losses "
+          f"{[m['loss'] for m in outs[0]['metrics']]}; launches per rank "
+          f"{[o['launches'] for o in outs]}; ranks bit-identical")
+    check(lr <= loss_rel, f"{name}: loss rel {lr} > {loss_rel}")
+    check(nr <= norm_rel, f"{name}: grad_norm rel {nr} > {norm_rel}")
+
+
+def phase_data_parallel(frames, device, seed, tmp, card, step_fps) -> dict:
+    """Phase 7 -> the launch counts of rank 0 of the Car run (a)."""
+    print("[7] data parallel: 2 ranks on cuda:0 over gloo (Car bf16 B=4, "
+          "tiny f32 B=4), torchrun cli.train, NCCL on 2 cards where present")
+    car = {"name": "car", "overrides": {}, "batch": 4, "seed": seed,
+           "steps": DP_STEPS, "timed": DP_STEPS}
+    tiny = dict(car, name="tiny", overrides=TINY, steps=1, timed=0)
+    want = {run["name"]: one_process_step(run["overrides"], frames, device,
+                                          4, seed)
+            for run in (car, tiny)}
+    outs = run_dp_workers(tmp, "gloo", "gloo", "cuda:0", [car, tiny])
+    check_dp_run("(a) Car bf16, 2 ranks x B=2", [o["car"] for o in outs],
+                 want["car"], 2e-2, 5e-2)
+    # f32 statistics summed over half the batch, then across the ranks,
+    # round differently from one sum over the batch, and a ReLU input
+    # within that rounding of 0 flips and moves a gradient: grad norm
+    # 1.4e-4 to 9.7e-4 apart over 4 seeds on a CPU, held at the f64 JAX
+    # step test's 5e-3 for the same effect. The exact check is f64, on the
+    # CPU (tests/test_torch_parallel.py): dense_build takes bf16 and f32
+    check_dp_run("(b) tiny f32, 2 ranks x B=2", [o["tiny"] for o in outs],
+                 want["tiny"], 1e-4, 5e-3)
+    a = outs[0]["car"]
+    print(f"  collectives per train step: {a['all_reduces_per_step']} "
+          f"all-reduces, {a['all_reduce_bytes_per_step']} bytes (one "
+          f"gradient buffer of {a['grad_all_reduce_bytes']} bytes, one "
+          f"metric vector, the BatchNorm statistics forward and backward)")
+    print(f"  gloo on one card (both ranks on cuda:0, staged through the "
+          f"host; not an NCCL time): gradient all-reduce "
+          f"{a['grad_all_reduce_ms']} ms alone, "
+          f"{a['grad_all_reduce_in_step_ms']} ms in the step; step "
+          f"{a['step_ms']} ms at B=2 a rank [{card}]")
+
+    # (c) the CLI under torchrun, on phase 6's KITTI tree
+    data = os.path.join(tmp, "kitti")
+    exp = os.path.join(tmp, "exp_dp")
+    cfg = os.path.join(tmp, "dp.yaml")
+    with open(cfg, "w") as f:
+        f.write("system: {num_data_shards: 2}\n"
+                "train: {num_epochs: 1, batch_size: 2}\n"
+                "val: {batch_size: 2}\n")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "voxelnet_tpu_torch.cli.train",
+         "--dist-backend", "gloo", "--device", "cuda:0", "--data-dir", data,
+         "--exp-dir", exp, "--cfg", cfg, "--print-interval", "1"],
+        capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+    check(r.returncode == 0, f"torchrun cli.train exited {r.returncode}:\n"
+          f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    logged = [line for line in r.stdout.splitlines()
+              if line.startswith(("Train ", "Epoch "))]
+    steps = TRAINER_FILES["training"] // 2
+    print(f"  (c) torchrun cli.train, 2 ranks: {time.perf_counter() - t0} s"
+          + "".join(f"\n    {line}" for line in logged))
+    check(len(logged) == steps + 1, f"(c) expected {steps} step lines and "
+          f"one epoch line, from rank 0 only: {logged}")
+    check(os.path.exists(os.path.join(exp, "config.yaml")), "(c) no config")
+    ckpts = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+    check(ckpts == ["0"], f"(c) checkpoints {ckpts}")
+    saved = torch.load(os.path.join(exp, "checkpoints", "0", "state.pt"),
+                       map_location="cpu", weights_only=True)
+    check(saved["step"] == steps, f"(c) step count {saved['step']}")
+    val_tags = sorted(f[:-4] for f in os.listdir(
+        os.path.join(data, "validation", "velodyne")))
+    dumped = sorted(f[:-4] for f in os.listdir(
+        os.path.join(exp, "preds", "1", "data")))
+    check(dumped == val_tags, f"(c) preds/1: {dumped}")
+    ap = json.loads(run_cli(eval_cli.main, [
+        "--preds", os.path.join(exp, "preds", "1", "data"),
+        "--gt", os.path.join(data, "validation", "label_2"),
+        "--iou", "0.5", "--mode", "bev"]))
+    check(ap["frames"] == len(val_tags), f"(c) cli.eval frames {ap}")
+    print(f"  (c) exp dir, checkpoint 0 at step {saved['step']}, dumps of "
+          f"all {len(val_tags)} val frames; cli.eval {json.dumps(ap)}")
+
+    # (d) NCCL between two cards
+    if torch.cuda.device_count() >= 2:
+        run8 = dict(car, name="car8", batch=16, timed=DP_TIMED_STEPS)
+        outs8 = [o["car8"] for o in run_dp_workers(tmp, "nccl", "nccl",
+                                                    None, [run8])]
+        check_ranks_agree("(d) Car bf16, NCCL, 2 cards x B=8", outs8)
+        o = outs8[0]
+        print(f"  (d) NCCL, 2 cards, Car B=8 a card: step {o['step_ms']} ms,"
+              f" {8e3 / o['step_ms']} frames/s a card (one card, phase 5: "
+              f"{step_fps[8]}); gradient all-reduce {o['grad_all_reduce_ms']}"
+              f" ms alone, {o['grad_all_reduce_in_step_ms']} ms in the step"
+              f" [{card}]")
+    else:
+        print(f"  (d) NCCL across cards: not run, torch sees "
+              f"{torch.cuda.device_count()} card")
+    return a["launches"]
+
+
 def kernel_entry(name, times, errs, bounds, launches, infer_launches,
-                 train_launches, trainer_launches) -> dict:
+                 train_launches, trainer_launches, dp_launches) -> dict:
     """One kernel's object of the {"kernels": [...]} line: event and
     profiler device times of the kernel, its plain version and its one
     torch call, its bound, and extra shapes of the same kernel."""
@@ -838,7 +1110,8 @@ def kernel_entry(name, times, errs, bounds, launches, infer_launches,
              "launches": launches[name],
              "launches_by_path": {"inference": infer_launches[name],
                                   "train": train_launches[name],
-                                  "trainer": trainer_launches[name]},
+                                  "trainer": trainer_launches[name],
+                                  "data_parallel_rank0": dp_launches[name]},
              "max_abs_err": errs[name], **cols("", name),
              "library_ms": lib["ms"] if lib else None,
              "library_device_ms": lib["device_ms"] if lib else None}
@@ -851,6 +1124,9 @@ def parse_args(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the synthetic GT boxes and point shuffles")
+    p.add_argument("--dp-worker", metavar="JOB", default=None,
+                   help="run as one rank of a phase 7 job (internal)")
+    p.add_argument("--rank", type=int, default=0)
     return p.parse_args(argv)
 
 
@@ -858,6 +1134,8 @@ def main(argv=None):
     args = parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device")
+    if args.dp_worker:
+        return dp_worker(args.dp_worker, args.rank)
     device = torch.device("cuda", 0)
     # f32 comparisons (the plain VFE's matmuls, the tiny-grid convs) run
     # in full f32, not TF32
@@ -893,6 +1171,8 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         trainer_launches = phase_trainer(frames, device, args.seed, tmp)
         phase_trainer_timing(frames, device, args.seed, tmp, card, step_fps)
+        dp_launches = phase_data_parallel(frames, device, args.seed, tmp,
+                                          card, step_fps)
 
     # each kernel's count on the path of the slice that brought it: the
     # fused VFE runs only for inference, the others on the train step
@@ -901,7 +1181,8 @@ def main(argv=None):
                 "run_copy": train_launches["run_copy"]}
     print(card)
     entries = [kernel_entry(name, times, errs, bounds, launches,
-                            infer_launches, train_launches, trainer_launches)
+                            infer_launches, train_launches, trainer_launches,
+                            dp_launches)
                for name in KERNELS]
     entries[KERNELS.index("vfe_fused")].update(vfe_info)
     print(json.dumps({"kernels": entries}))

@@ -63,17 +63,17 @@ def test_resolver_maps_every_lowering_to_one_path(key, values):
     """Every value the JAX package accepts for a lowering knob resolves to
     the port's one path: the same plan as the defaults."""
     want = resolve_plan(get_config("Car"))
-    assert want == (True, "bfloat16")
+    assert want == (True, "bfloat16", 1, 0)
     for value in values:
         assert resolve_plan(get_config("Car", data={key: value})) == want
     assert resolve_plan(get_config("Car", data={"fold_bn": "off"})) == (
-        False, "bfloat16")
+        False, "bfloat16", 1, 0)
 
 
 @pytest.mark.parametrize("overrides,match", [
     ({"compat": {"bn_over_padding": True}}, "bn_over_padding"),
-    ({"system": {"num_model_shards": 2}}, "one device"),
-    ({"system": {"num_data_shards": 4}}, "one device"),
+    ({"system": {"num_model_shards": 2}}, "W-sharding"),
+    ({"system": {"num_data_shards": 4}}, "no torch.distributed process"),
     ({"data": {"middle_backend": "nope"}}, "middle_backend"),
     ({"data": {"bev_fold": "nope"}}, "bev_fold"),
     ({"train": {"compute_dtype": "float16"}}, "compute_dtype"),
@@ -102,11 +102,11 @@ def test_stage_points_matches_jax_pipeline():
 
 def test_port_imports_no_jax():
     """The package, its CLIs, its train step, trainer, checkpoints,
-    evaluator and dataset, and the chip smoke script load without JAX,
-    flax, optax or orbax and without any module of the JAX package, under
-    its name or loaded from a file under voxelnet_tpu/, with yaml and cv2
-    unimportable (the card's machine has neither). conftest.py has
-    imported JAX here, so check in a subprocess."""
+    evaluator, dataset and data parallelism, and the chip smoke script
+    load without JAX, flax, optax or orbax and without any module of the
+    JAX package, under its name or loaded from a file under voxelnet_tpu/,
+    with yaml and cv2 unimportable (the card's machine has neither).
+    conftest.py has imported JAX here, so check in a subprocess."""
     code = ("import os, sys, runpy\n"
             "class Block:\n"
             "    def find_spec(self, name, path=None, target=None):\n"
@@ -123,6 +123,8 @@ def test_port_imports_no_jax():
             "import voxelnet_tpu_torch.training.trainer\n"
             "import voxelnet_tpu_torch.training.checkpoint\n"
             "import voxelnet_tpu_torch.training.evaluate\n"
+            "import voxelnet_tpu_torch.parallel.distributed\n"
+            "import voxelnet_tpu_torch.parallel.mesh\n"
             "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
             "from voxelnet_tpu_torch.config import get_config\n"
             "get_config('Car').dump_yaml()\n"

@@ -130,7 +130,7 @@ def test_checkpoint_restore_is_bit_equal_and_checks_yaw(tmp_path):
 
 # --- the trainer against the JAX trainer ----------------------------------
 
-# f64 compute (the BatchNorms still take f32 statistics, as flax's do), f32
+# f64 compute (flax's BatchNorms take f32 statistics, the port's f64), f32
 # points off the 5 mm lattice (the jitted JAX voxelizer bins lattice points
 # by a reciprocal multiply), 2048 voxel slots as in test_torch_train.py's
 # f64 step, and lr 1e-4: this untrained net's gradient norm is ~1.5e3, so
@@ -309,7 +309,7 @@ def test_stager_close_stops_an_endless_source():
 
 @pytest.mark.parametrize("overrides,kw,match", [
     ({"train": {"host_voxelize": True}}, {}, "host voxelizer"),
-    ({"system": {"num_data_shards": 2}}, {}, "one device"),
+    ({"system": {"num_data_shards": 2}}, {}, "no torch.distributed process"),
     ({"train": {"remat": "some"}}, {}, "remat"),
     ({}, {"num_vis_dump": 2}, "viz"),
 ])

@@ -119,6 +119,27 @@ def random_points(rng, cfg, batch: int, n: int):
     return pts, np.full((batch,), n, np.int32)
 
 
+def step_batch(cfg, seed=0, n=1800):
+    """A train-step batch of 2 frames: random points off the voxel
+    lattice (the jitted JAX voxelizer bins lattice points by a reciprocal
+    multiply) and two GT cars per frame, the second frame's second one
+    masked. The GTs sit where no two anchors tie for their best IoU
+    (tests/test_torch_train.py::_assert_no_ties)."""
+    rng = np.random.default_rng(seed)
+    points, num = random_points(rng, cfg, 2, n)
+    num[1] = n - 400
+    G = cfg.data.max_gt_boxes
+    gt = np.zeros((2, G, 7), np.float32)
+    gt[:, 0] = [6.25, 0.18, -1.0, 1.56, 1.6, 3.9, 0.05]
+    gt[:, 1] = [9.55, 2.3, -1.0, 1.56, 1.6, 3.9, 1.52]
+    gt[1, 0, :2] += [0.137, -0.111]
+    gt_mask = np.zeros((2, G), bool)
+    gt_mask[0, :2] = True
+    gt_mask[1, 0] = True
+    return {"points": points, "num_points": num, "gt_boxes": gt,
+            "gt_mask": gt_mask}
+
+
 def assert_bf16_close(got: torch.Tensor, want: np.ndarray):
     """At least 99.9% of the elements bit-equal as values, the rest
     within 2**-7 relative (one bf16 ulp at a rounding boundary): the f32

@@ -1,13 +1,25 @@
 """Training CLI of the port, as `voxelnet_tpu/cli/train.py` (the same flags)
-plus --device (default cuda; cuda without a card exits with an error).
+plus --device (cuda, cuda:N or cpu; default cuda; cuda without a card
+exits with an error) and --dist-backend.
 
     python -m voxelnet_tpu_torch.cli.train --data-dir /data/kitti/MD_KITTI \
         [--cfg overrides.yaml] [--class-name Car] \
         [--resume exps/.../checkpoints] [--device cuda]
 
+Data parallel, one process per card, N = system.num_dcn_shards x
+num_data_shards in the --cfg file and train.batch_size the global batch:
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m voxelnet_tpu_torch.cli.train --exp-dir <shared dir> --cfg ...
+
+or, as the JAX CLI, VOXELNET_COORDINATOR=host:port,
+VOXELNET_NUM_PROCESSES=N and VOXELNET_PROCESS_ID=i in each process. With
+either set, the CLI starts the process group before the Trainer (nccl on
+cuda:LOCAL_RANK; --dist-backend gloo with --device cuda:0 puts every rank
+on one card) and destroys it at exit.
+
 --cfg reads the YAML subset of `voxelnet_tpu_torch/utils/yaml_subset.py`.
-Several processes (the JAX CLI's VOXELNET_COORDINATOR) and --num-vis-dump
-above 0 are not in the port yet.
+--num-vis-dump above 0 is not in the port yet.
 """
 
 from __future__ import annotations
@@ -19,6 +31,7 @@ from dataclasses import replace
 import torch
 
 from voxelnet_tpu_torch.config import get_config
+from voxelnet_tpu_torch.parallel import distributed
 from voxelnet_tpu_torch.training.trainer import Trainer
 
 
@@ -44,11 +57,22 @@ def main(argv=None):
                         "torch.profiler into the exp logs dir")
     p.add_argument("--num-vis-dump", type=int, default=0, choices=(0,),
                    help="per-epoch image dumps: only 0 in the port")
-    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--device", type=_device_arg, default="cuda",
+                   help="cuda (cuda:LOCAL_RANK when launched in several "
+                        "processes), cuda:N or cpu")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="backend of a multi-process launch (default nccl "
+                        "on a card, gloo on the CPU; gloo lets several "
+                        "ranks share one card)")
     args = p.parse_args(argv)
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: torch sees no CUDA device")
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: torch sees no CUDA device")
+    world = distributed.launch_world_size() if distributed.launched() else 1
+    if world > 1 and args.exp_dir is None:
+        raise SystemExit(
+            f"training in {world} processes needs --exp-dir, one directory "
+            "shared by all of them (numbering exps/DATE-NNN would race)")
     classes = (("Car", "Pedestrian", "Cyclist")
                if args.class_name == "all" else (args.class_name,))
     profile_steps = None
@@ -56,6 +80,28 @@ def main(argv=None):
         a, b = args.profile_steps.split(":")
         profile_steps = (int(a), int(b))
 
+    device = args.device
+    start_group = distributed.launched() and not distributed.is_initialized()
+    if start_group:
+        device = distributed.initialize(
+            backend=args.dist_backend,
+            device=None if args.device == "cuda" else args.device)
+    try:
+        _train(args, classes, device, profile_steps)
+    finally:
+        if start_group:
+            distributed.shutdown()
+
+
+def _device_arg(value: str) -> str:
+    if value not in ("cuda", "cpu") and not (
+            value.startswith("cuda:") and value[5:].isdigit()):
+        raise argparse.ArgumentTypeError(
+            f"{value!r}: expected cuda, cuda:N or cpu")
+    return value
+
+
+def _train(args, classes, device, profile_steps) -> None:
     for cls_name in classes:
         config = get_config(cls_name)
         if args.cfg:
@@ -63,7 +109,8 @@ def main(argv=None):
         if args.data_dir:
             config = replace(
                 config, data=replace(config.data, dir=args.data_dir))
-        print(config.dump_yaml())
+        if distributed.is_main():
+            print(config.dump_yaml())
 
         with Trainer(
             config,
@@ -76,7 +123,7 @@ def main(argv=None):
             exp_dir=(args.exp_dir if args.exp_dir is None
                      or len(classes) == 1
                      else os.path.join(args.exp_dir, cls_name)),
-            device=args.device,
+            device=device,
         ) as trainer:
             trainer.train(
                 print_interval=args.print_interval,

@@ -19,6 +19,7 @@ from typing import Any, Mapping, NamedTuple
 
 import numpy as np
 
+from voxelnet_tpu_torch.parallel.mesh import process_mesh
 from voxelnet_tpu_torch.utils import yaml_subset
 
 # mean KITTI calibration matrices (per-frame calib files override them)
@@ -301,10 +302,13 @@ class Plan(NamedTuple):
     """What a config selects on the port's single path: the run-copy
     voxel table (train/eval steps), the fused VFE kernel (inference), the
     streaming dense-grid kernel, the Conv3D middle (nn.Conv3d) and the
-    depth->BEV fold as a reshape of NCDHW."""
+    depth->BEV fold as a reshape of NCDHW; and the processes the batch
+    axes of the mesh run on (parallel/mesh.py)."""
 
     fold_bn: bool    # data.fold_bn: 'off' keeps the separate BN ops
     dtype: str       # train.compute_dtype
+    world_size: int = 1   # processes, one card each (dcn x data shards)
+    rank: int = 0
 
 
 def _check(name: str, value: str, allowed: tuple[str, ...]) -> None:
@@ -319,11 +323,14 @@ def resolve_plan(config: VoxelNetConfig, train: bool = False) -> Plan:
     The JAX lowerings (`wpack2`, `folded2d`, `dsplit`, the three Pallas
     run-copy layouts, ...) are the same math in TPU-friendly layouts; the
     port runs NCDHW convs, where the depth->BEV fold is a reshape, and one
-    run-copy kernel for every table layout. Raises where the port cannot
-    give the configured semantics: the reference's ghost-activation VFE
-    (`compat.bn_over_padding`) and any mesh sharding (the port runs on one
-    device); for `train=True`, a `train.remat` other than 'none', 'seams'
-    or 'full'.
+    run-copy kernel for every table layout. The mesh's batch axes
+    (`system.num_dcn_shards x num_data_shards`) are processes, one card
+    each: their product must equal the running world size (1 without a
+    process group). Raises where the port cannot give the configured
+    semantics: the reference's ghost-activation VFE
+    (`compat.bn_over_padding`), a 'model' axis (`num_model_shards > 1`), a
+    batch mesh that is not the world size (parallel/mesh.py); for
+    `train=True`, a `train.remat` other than 'none', 'seams' or 'full'.
     """
     data = config.data
     _check("middle_backend", data.middle_backend, MIDDLE_BACKENDS)
@@ -337,13 +344,7 @@ def resolve_plan(config: VoxelNetConfig, train: bool = False) -> Plan:
         raise ValueError(
             "compat.bn_over_padding (reference ghost-activation VFE) is not "
             "implemented by the port")
-    sys_cfg = config.system
-    shards = (sys_cfg.num_data_shards * sys_cfg.num_model_shards
-              * sys_cfg.num_dcn_shards)
-    if shards > 1:
-        raise ValueError(
-            f"the port runs on one device; got {shards} mesh shards "
-            "(system.num_data_shards/num_model_shards/num_dcn_shards)")
+    procs = process_mesh(config.system)
     if config.train.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(
             f"train.compute_dtype={config.train.compute_dtype!r} — expected "
@@ -352,4 +353,5 @@ def resolve_plan(config: VoxelNetConfig, train: bool = False) -> Plan:
         raise ValueError(
             f"train.remat={config.train.remat!r} — expected one of {REMATS}")
     return Plan(fold_bn=data.fold_bn != "off",
-                dtype=config.train.compute_dtype)
+                dtype=config.train.compute_dtype,
+                world_size=procs.world_size, rank=procs.rank)

@@ -5,9 +5,17 @@ buffers (state_dict keys, convert.py, bn_fold.py and the eval path stay as
 they are) and computes the flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5,
 dtype=float32)` forward here, as the JAX package's modules use it:
 
-  * statistics in float32 (the input is cast down from f64 or up from
-    bf16), E[x] and E[x^2] - E[x]^2 clipped at 0 (flax's
-    `use_fast_variance`), over the stored rows only when a mask is given;
+  * statistics in float32 (the input is cast up from bf16), E[x] and
+    E[x^2] - E[x]^2 clipped at 0 (flax's `use_fast_variance`), over the
+    stored rows only when a mask is given. An f64 input keeps f64
+    statistics (the port's check mode, where a batch split across
+    processes then gives the one-process step to f64 rounding); flax's
+    dtype=float32 BN would round them to f32;
+  * over the global batch when several processes train
+    (parallel/distributed.py): each BN call sums [sum x, sum x^2, n] over
+    its own rows and adds them across the processes in one all-reduce,
+    forward and backward, so every process normalises with, and moves its
+    running stats by, the same global statistics;
   * normalisation with that biased variance, in the wider of the input's
     type and f32: (x - mean) * (rsqrt(var + eps) * scale) + bias, returned
     in float32;
@@ -17,7 +25,8 @@ dtype=float32)` forward here, as the JAX package's modules use it:
 
 `running_stats_frozen()` holds the running stats still: the recompute of a
 `torch.utils.checkpoint` region (train.remat) runs the forward a second
-time, and one train step must move them once.
+time, and one train step must move them once. The recompute still
+all-reduces its statistics, in the same order on every process.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ import threading
 
 import torch
 from torch import nn
+
+from voxelnet_tpu_torch.parallel import distributed
 
 MOMENTUM = 0.9    # flax convention: the weight of the old running value
 EPS = 1e-5
@@ -60,16 +71,7 @@ def flax_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     shape = [1] * x.dim()
     shape[dim] = -1
     if bn.training:
-        xs = x.to(torch.float32)
-        if mask is None:
-            mean = xs.mean(axes)
-            mean2 = (xs * xs).mean(axes)
-        else:
-            m = torch.broadcast_to(mask, xs.shape)
-            n = m.sum(axes).to(torch.float32)
-            zero = xs.new_zeros(())
-            mean = torch.where(m, xs, zero).sum(axes) / n
-            mean2 = torch.where(m, xs * xs, zero).sum(axes) / n
+        mean, mean2 = _batch_moments(x, axes, mask)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         if not getattr(_frozen, "on", False):
             with torch.no_grad():
@@ -83,3 +85,24 @@ def flax_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     mul = torch.rsqrt(var + EPS) * bn.weight
     y = (x.to(wide) - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
     return y.to(torch.float32)
+
+
+def _batch_moments(x: torch.Tensor, axes: list[int],
+                   mask: torch.Tensor | None):
+    """(E[x], E[x^2]) per channel over `axes` of the global batch (the
+    rows where `mask`), in f32 (f64 for an f64 x): one all-reduce of the
+    stacked local sums and counts when several processes train."""
+    xs = x.to(torch.promote_types(x.dtype, torch.float32))
+    if mask is None:
+        s1 = xs.sum(axes)
+        s2 = (xs * xs).sum(axes)
+        n = torch.full_like(s1, xs.numel() // s1.numel())
+    else:
+        m = torch.broadcast_to(mask, xs.shape)
+        zero = xs.new_zeros(())
+        s1 = torch.where(m, xs, zero).sum(axes)
+        s2 = torch.where(m, xs * xs, zero).sum(axes)
+        n = m.sum(axes).to(xs.dtype)
+    if distributed.world_size() > 1:
+        s1, s2, n = distributed.all_reduce_sum(torch.stack([s1, s2, n]))
+    return s1 / n, s2 / n

@@ -44,11 +44,12 @@ class ConvBlock3D(nn.Module):
 
 def bn_relu(bn, y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """BN (flax batch statistics in train mode; torch's eval BN, or none
-    once folded by bn_fold.py) in f32, then ReLU, in `dtype`."""
+    once folded by bn_fold.py) in f32 (in the type of the BN's parameters
+    where a caller made them f64), then ReLU, in `dtype`."""
     if bn is not None and bn.training:
         y = flax_batch_norm(bn, y, 1)
     elif bn is not None:
-        y = bn(y.float())
+        y = bn(y.to(bn.weight.dtype))
     return torch.relu(y).to(dtype)
 
 

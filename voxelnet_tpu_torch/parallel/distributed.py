@@ -1,0 +1,215 @@
+"""Several processes, one card each: the port's counterpart of
+`voxelnet_tpu/parallel/distributed.py`.
+
+The JAX step is one program over the global batch that a mesh only places;
+here every process runs the same step on its own rows of the global batch,
+and the places where the global batch meets are collectives:
+
+  * `all_reduce_sum` (forward and backward a SUM all-reduce): the
+    BatchNorm statistics of train mode (models/bn.py);
+  * `all_reduce_` on one flat buffer: the gradient and the metric vector
+    of the train and eval steps (training/train_step.py). The loss is a
+    sum over frames, so the global gradient is the SUM of the processes'
+    gradients, not their mean;
+  * `broadcast_state_`: the model's parameters and buffers from rank 0,
+    after init and after a restore;
+  * `barrier`: after rank 0 writes a checkpoint.
+
+Only all_reduce, broadcast and barrier are used: gloo has them for CUDA
+tensors too, so two ranks can share one card over gloo where NCCL refuses
+("Duplicate GPU detected"). Without a process group, or in a world of
+one, every helper is the identity (a mesh of size 1 is free).
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+# the JAX CLI's launch variables (voxelnet_tpu/parallel/distributed.py)
+ENV_COORDINATOR = "VOXELNET_COORDINATOR"
+ENV_NUM_PROCESSES = "VOXELNET_NUM_PROCESSES"
+ENV_PROCESS_ID = "VOXELNET_PROCESS_ID"
+DEFAULT_TIMEOUT_S = 600.0
+
+# all-reduces this process issued and their payload bytes: read and reset
+# by the caller, as the kernels' launch counts are
+all_reduces = 0
+all_reduce_bytes = 0
+
+
+def launched() -> bool:
+    """True when the environment names a multi-process launch: the JAX
+    CLI's VOXELNET_COORDINATOR or torchrun's WORLD_SIZE."""
+    return ENV_COORDINATOR in os.environ or "WORLD_SIZE" in os.environ
+
+
+def launch_world_size() -> int:
+    """The process count the environment asks for (1 when none)."""
+    for key in (ENV_NUM_PROCESSES, "WORLD_SIZE"):
+        if key in os.environ:
+            return int(os.environ[key])
+    return 1
+
+
+def initialize(coordinator_address: str | None = None,
+               num_processes: int | None = None,
+               process_id: int | None = None, *,
+               backend: str | None = None, device=None,
+               timeout_s: float = DEFAULT_TIMEOUT_S) -> torch.device:
+    """Start the process group of this process and return its device.
+
+    The group's address, size and rank come from the arguments; else from
+    VOXELNET_COORDINATOR (host:port, or any torch init URL such as
+    file://...) / VOXELNET_NUM_PROCESSES / VOXELNET_PROCESS_ID; else from
+    torchrun's MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK. The device is
+    `device`, else cuda:LOCAL_RANK where torch sees a card (LOCAL_RANK, or
+    the rank modulo the card count), else the CPU. The backend is
+    `backend`, else nccl for a CUDA device and gloo for the CPU. A rank
+    that waits `timeout_s` seconds on a collective fails instead of
+    hanging."""
+    env = os.environ
+    coordinator_address = coordinator_address or env.get(ENV_COORDINATOR)
+    if coordinator_address is not None:
+        if num_processes is None:
+            num_processes = int(env[ENV_NUM_PROCESSES])
+        if process_id is None:
+            process_id = int(env[ENV_PROCESS_ID])
+        init_method = (coordinator_address if "://" in coordinator_address
+                       else f"tcp://{coordinator_address}")
+    else:
+        init_method = "env://"
+        num_processes = (int(env["WORLD_SIZE"]) if num_processes is None
+                         else num_processes)
+        process_id = int(env["RANK"]) if process_id is None else process_id
+    if device is None:
+        if torch.cuda.is_available():
+            local = int(env.get("LOCAL_RANK",
+                                process_id % torch.cuda.device_count()))
+            device = torch.device("cuda", local)
+        else:
+            device = torch.device("cpu")
+    device = torch.device(device)
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(device)
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    dist.init_process_group(
+        backend, init_method=init_method, world_size=num_processes,
+        rank=process_id, timeout=datetime.timedelta(seconds=timeout_s))
+    return device
+
+
+def shutdown() -> None:
+    """Destroy the process group, if one is up."""
+    if is_initialized():
+        dist.destroy_process_group()
+
+
+def is_initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def world_size() -> int:
+    return dist.get_world_size() if is_initialized() else 1
+
+
+def rank() -> int:
+    return dist.get_rank() if is_initialized() else 0
+
+
+def is_main() -> bool:
+    return rank() == 0
+
+
+def barrier() -> None:
+    if world_size() > 1:
+        dist.barrier()
+
+
+def process_shard() -> tuple[int, int] | None:
+    """(rank, world) for per-process loading (data/dataset.plan_batches),
+    None in a world of one."""
+    return (rank(), world_size()) if world_size() > 1 else None
+
+
+def local_num_real(num_real: int, batch_size: int) -> int:
+    """The real (non-padding) frames among this process's rows of a
+    global batch of `batch_size` rows whose first `num_real` are real."""
+    local = batch_size // world_size()
+    return int(np.clip(num_real - rank() * local, 0, local))
+
+
+def _all_reduce(t: torch.Tensor) -> None:
+    global all_reduces, all_reduce_bytes
+    all_reduces += 1
+    all_reduce_bytes += t.numel() * t.element_size()
+    dist.all_reduce(t)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """y = the SUM of x over the processes; the gradient of x is the SUM
+    of the processes' gradients of y."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = x.clone(memory_format=torch.contiguous_format)
+        _all_reduce(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        _all_reduce(grad)
+        return grad
+
+
+def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
+    """Differentiable SUM over the processes; x itself in a world of one."""
+    if world_size() == 1:
+        return x
+    return _AllReduceSum.apply(x)
+
+
+def all_reduce_(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The SUM over the processes of each tensor, through one all-reduce
+    of their flat concatenation (all of one dtype). Returns new tensors
+    (the inputs themselves in a world of one)."""
+    if world_size() == 1 or not tensors:
+        return list(tensors)
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    _all_reduce(flat)
+    return [part.view_as(t) for part, t in zip(
+        flat.split([t.numel() for t in tensors]), tensors)]
+
+
+@torch.no_grad()
+def broadcast_state_(model: torch.nn.Module, src: int = 0) -> None:
+    """Copy `src`'s parameters and buffers into every process's model."""
+    if world_size() == 1:
+        return
+    for t in list(model.parameters()) + list(model.buffers()):
+        dist.broadcast(t.data, src)
+
+
+@torch.no_grad()
+def ranks_disagree(model: torch.nn.Module) -> int:
+    """The number of processes whose parameters and buffers are not
+    bit-equal to rank 0's (0 in a world of one)."""
+    if world_size() == 1:
+        return 0
+    differ = torch.zeros((), dtype=torch.float64,
+                         device=next(model.parameters()).device)
+    for t in list(model.parameters()) + list(model.buffers()):
+        ref = t.detach().clone()
+        dist.broadcast(ref, 0)
+        if not torch.equal(ref, t.detach()):
+            differ.fill_(1.0)
+    dist.all_reduce(differ)
+    return int(differ.item())

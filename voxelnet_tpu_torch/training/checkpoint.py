@@ -16,6 +16,11 @@ Retention is Orbax's, as the JAX manager configures it (`max_to_keep=keep`,
 `best_fn` = the `val_loss` metric or +inf, `best_mode='min'`): after each
 save, when more than `keep` steps exist, only the `keep` best by val_loss
 stay (on ties the later steps); steps saved without metrics always stay.
+
+Several processes (parallel/distributed.py) share one directory: rank 0
+writes each step and applies retention, then every rank waits at a
+barrier, so none reads or restores a step before it is complete. Every
+rank restores from the directory itself.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import shutil
 
 import torch
 
+from voxelnet_tpu_torch.parallel import distributed
 from voxelnet_tpu_torch.training.optim import OptState
 
 STATE_FILE = "state.pt"
@@ -67,9 +73,10 @@ class CheckpointManager:
         self._keep = keep
         self._config = config
         os.makedirs(self._dir, exist_ok=True)
-        for name in os.listdir(self._dir):
-            if name.startswith(_TMP_PREFIX):    # left by a killed save
-                shutil.rmtree(os.path.join(self._dir, name))
+        if distributed.is_main():
+            for name in os.listdir(self._dir):
+                if name.startswith(_TMP_PREFIX):    # left by a killed save
+                    shutil.rmtree(os.path.join(self._dir, name))
 
     def _steps(self) -> list[int]:
         return sorted(int(d) for d in os.listdir(self._dir) if d.isdigit())
@@ -92,7 +99,13 @@ class CheckpointManager:
 
     def save(self, step: int, state, metrics: dict | None = None) -> None:
         """Write `state` (training/train_step.TrainState) as step `step`
-        with `metrics`, then drop the steps retention no longer keeps."""
+        with `metrics`, then drop the steps retention no longer keeps: on
+        rank 0, then a barrier of every rank."""
+        if distributed.is_main():
+            self._save(step, state, metrics)
+        distributed.barrier()
+
+    def _save(self, step: int, state, metrics: dict | None) -> None:
         final = os.path.join(self._dir, str(step))
         if os.path.exists(final):
             raise FileExistsError(f"checkpoint step {step} exists in "

@@ -9,6 +9,14 @@ the device, the RPN loss, backward, clip by global norm and an SGD step.
 It returns the JAX step's metrics. The model's parameters and BN running
 stats are updated in place (the JAX step returns new arrays).
 
+Several processes (parallel/distributed.py) each run the step on their
+own rows of the global batch, with the JAX sharded step's semantics: BN
+statistics over the global batch (models/bn.py), the global gradient as
+the SUM of the processes' gradients (the loss is a sum over frames), one
+all-reduce of one flat buffer of all of them before the clip, and metrics
+summed over the global batch (one more all-reduce of the metric vector).
+Every process then holds the same gradient and takes the same update.
+
 A batch is a dict of numpy arrays or tensors with the JAX step's keys:
 `points` (B, N, 4) f32 or int16 wire format with `num_points` (B,), or
 host voxel buffers `voxel_features`/`voxel_coords`/`voxel_counts`; and
@@ -29,11 +37,15 @@ from voxelnet_tpu_torch.ops.anchors import anchors_flat
 from voxelnet_tpu_torch.ops.voxelize import (VoxelGridSpec,
                                              dequantize_points_i16,
                                              voxelize_table)
+from voxelnet_tpu_torch.parallel import distributed
 from voxelnet_tpu_torch.training.optim import ClippedSGD, OptState
 
 
 TRAIN_STAGES = ("voxelize", "targets", "forward", "loss", "backward",
-                "update")
+                "all_reduce", "update")
+LOSS_METRICS = ("loss", "cls_loss", "reg_loss", "cls_pos_loss",
+                "cls_neg_loss")
+EVAL_METRICS = ("loss", "cls_loss", "reg_loss")
 
 
 @dataclasses.dataclass
@@ -107,22 +119,38 @@ class _Inputs:
             assign, (obj.feature_height, obj.feature_width))
 
 
-def _loss(config: VoxelNetConfig, cls_logits, reg, maps) -> losses.RPNLoss:
+def _loss_frames(config: VoxelNetConfig, cls_logits, reg,
+                 maps) -> losses.RPNLoss:
     tcfg = config.train
-    return losses.rpn_loss(cls_logits, reg, *maps, alpha=tcfg.alpha,
-                           beta=tcfg.beta, sigma=tcfg.sigma, from_logits=True,
-                           buggy_smooth_l1=config.compat.buggy_smooth_l1)
+    return losses.rpn_loss_frames(
+        cls_logits, reg, *maps, alpha=tcfg.alpha, beta=tcfg.beta,
+        sigma=tcfg.sigma, from_logits=True,
+        buggy_smooth_l1=config.compat.buggy_smooth_l1)
+
+
+def _global_metrics(frames: losses.RPNLoss, names: tuple[str, ...],
+                    extra: dict) -> dict:
+    """The loss terms `names` and the `extra` counts, summed over the
+    global batch: one stacked f64 vector, one all-reduce. Loss terms come
+    back as f32 0-d tensors, counts as int64."""
+    vec = torch.stack([losses.sum_frames(getattr(frames, n)) for n in names]
+                      + [v.to(torch.float64) for v in extra.values()])
+    vec = distributed.all_reduce_([vec])[0]
+    metrics = dict(zip(names, vec[:len(names)].to(torch.float32).unbind()))
+    metrics.update(zip(extra, vec[len(names):].to(torch.int64).unbind()))
+    return metrics
 
 
 def make_train_step(config: VoxelNetConfig, device="cuda",
                     steps_per_epoch: int = 1):
     """-> fn(state, batch, marks=None) -> (state, metrics): one SGD step
     on `device` (the card unless the caller asks for "cpu"). Metrics are
-    0-d tensors: loss, cls_loss, reg_loss, cls_pos_loss, cls_neg_loss,
-    grad_norm, and voxels_clipped (frames whose occupied voxels exceed
+    0-d tensors over the global batch: loss, cls_loss, reg_loss,
+    cls_pos_loss, cls_neg_loss, grad_norm (of the global gradient, before
+    the clip), and voxels_clipped (frames whose occupied voxels exceed
     max_voxels) when the step voxelizes. `marks`: a list that receives
     (stage, CUDA event or host time) at the start and after each stage of
-    TRAIN_STAGES."""
+    TRAIN_STAGES ("all_reduce": the gradient's, nothing in one process)."""
     resolve_plan(config, train=True)
     device = _device(device)
     inputs = _Inputs(config, device)
@@ -138,30 +166,32 @@ def make_train_step(config: VoxelNetConfig, device="cuda",
         mark(marks, "targets", device)
         cls_logits, reg = model(features, coords, counts)
         mark(marks, "forward", device)
-        out = _loss(config, cls_logits, reg, maps)
+        frames = _loss_frames(config, cls_logits, reg, maps)
         mark(marks, "loss", device)
         params = list(model.parameters())
-        grads = torch.autograd.grad(out.loss, params)
+        grads = torch.autograd.grad(frames.loss.sum(), params)
         mark(marks, "backward", device)
+        grads = distributed.all_reduce_(grads)
+        mark(marks, "all_reduce", device)
         grad_norm, state.opt_state = optimizer.apply_(params, grads,
                                                       state.opt_state)
         mark(marks, "update", device)
         state.step += 1
-        metrics = {name: getattr(out, name).detach() for name in
-                   ("loss", "cls_loss", "reg_loss", "cls_pos_loss",
-                    "cls_neg_loss")}
+        with torch.no_grad():
+            metrics = _global_metrics(
+                frames, LOSS_METRICS,
+                {} if clipped is None else {"voxels_clipped": clipped})
         metrics["grad_norm"] = grad_norm
-        if clipped is not None:
-            metrics["voxels_clipped"] = clipped
         return state, metrics
 
     return step
 
 
 def make_eval_step(config: VoxelNetConfig, device="cuda"):
-    """-> fn(state, batch) -> (metrics {loss, cls_loss, reg_loss},
-    cls probabilities (B, H', W', 2), reg (B, H', W', 14)), the model in
-    eval mode (running BN stats), no gradients."""
+    """-> fn(state, batch) -> (metrics {loss, cls_loss, reg_loss} over
+    the global batch, cls probabilities (B, H', W', 2), reg (B, H', W',
+    14) of this process's rows), the model in eval mode (running BN
+    stats: no collective in the forward), no gradients."""
     resolve_plan(config)
     device = _device(device)
     inputs = _Inputs(config, device)
@@ -172,9 +202,8 @@ def make_eval_step(config: VoxelNetConfig, device="cuda"):
         features, coords, counts, _ = inputs.voxels(batch)
         maps = inputs.targets(batch)
         cls_logits, reg = model(features, coords, counts)
-        out = _loss(config, cls_logits, reg, maps)
-        metrics = {"loss": out.loss, "cls_loss": out.cls_loss,
-                   "reg_loss": out.reg_loss}
+        frames = _loss_frames(config, cls_logits, reg, maps)
+        metrics = _global_metrics(frames, EVAL_METRICS, {})
         return metrics, torch.sigmoid(cls_logits), reg
 
     return step

@@ -12,10 +12,24 @@ host copies and non_blocking copies on a side stream, which the step's
 stream waits on). Unlike the JAX stager, it stops within a bounded time
 when the consumer raises or closes mid-epoch.
 
-Not in the port yet, each refused: several processes or a mesh
-(`resolve_plan`), `train.host_voxelize` (the dataset), and `num_vis_dump`
-(image dumps need `utils/viz.py` and cv2). TensorBoard image summaries are
-not written.
+Several processes, one card each (parallel/distributed.py, started before
+the Trainer), run the JAX multi-host trainer's semantics: every process
+runs the same Trainer; each loads only its contiguous rows of every global
+batch (`num_real` stays global); the steps' BN statistics, gradients and
+metrics are global, so every process takes the same update and sees the
+same val loss and best-checkpoint decision; `config.yaml`, TensorBoard,
+prints and checkpoints come from rank 0 (every rank restores, and waits
+at a barrier after each save); label dumps are per process, each of the
+frames it loaded, the sweep stopping on the global frame count; a
+profiler trace is written per rank. The exp dir must be given
+(`exp_dir`): numbering one would race. Unlike the JAX multi-host trainer,
+the staging thread stays: it only copies to the device and issues no
+collective, while the main thread issues every collective in the same
+order on every process.
+
+Not in the port yet, each refused: `train.host_voxelize` (the dataset) and
+`num_vis_dump` (image dumps need `utils/viz.py` and cv2). TensorBoard
+image summaries are not written.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ from voxelnet_tpu_torch.models.voxelnet import Detections
 from voxelnet_tpu_torch.ops import box_coding, nms
 from voxelnet_tpu_torch.ops.anchors import anchors_flat
 from voxelnet_tpu_torch.ops.voxelize import quantize_points_i16
+from voxelnet_tpu_torch.parallel import distributed
 from voxelnet_tpu_torch.training import checkpoint as ckpt_lib
 from voxelnet_tpu_torch.training.train_step import (_device, create_train_state,
                                                     make_eval_step,
@@ -194,22 +209,31 @@ class Trainer:
     first batch), `host_gap_s` (host time from the end of one train-step
     call to the start of the next: waiting for the staged batch, logging),
     `epoch_s` and `epoch_steps` (epoch start to its last step done on the
-    device), `checkpoint_s`, and `val_dump_s` with `val_dump_frames`."""
+    device), `checkpoint_s`, and `val_dump_s` with `val_dump_frames` (the
+    frames this process dumped)."""
 
     def __init__(self, config: VoxelNetConfig, train_dir: str, val_dir: str,
                  exp_base: str = "exps", resume_from: str | None = None,
                  exp_dir: str | None = None, device="cuda"):
-        resolve_plan(config, train=True)
+        plan = resolve_plan(config, train=True)
         self.config = config
         self.device = _device(device)
+        self._is_main = plan.rank == 0
+        self._shard = distributed.process_shard()
         if exp_dir is not None:
             self.exp_dir = exp_dir
             for sub in ("checkpoints", "logs", "vis", "preds"):
                 os.makedirs(os.path.join(exp_dir, sub), exist_ok=True)
+        elif plan.world_size > 1:
+            raise ValueError(
+                f"training in {plan.world_size} processes needs an explicit "
+                "exp_dir (--exp-dir) shared by all of them: numbering "
+                "exps/DATE-NNN in each process would race")
         else:
             self.exp_dir = make_exp_dir(exp_base)
-        with open(os.path.join(self.exp_dir, "config.yaml"), "w") as f:
-            f.write(config.dump_yaml())
+        if self._is_main:
+            with open(os.path.join(self.exp_dir, "config.yaml"), "w") as f:
+                f.write(config.dump_yaml())
 
         self.train_ds = KITTIDataset(
             train_dir, config, augment=config.train.augment,
@@ -221,6 +245,7 @@ class Trainer:
 
         self.state = create_train_state(config, seed=config.train.seed,
                                         device=self.device)
+        distributed.broadcast_state_(self.state.model)
         self.train_step = make_train_step(config, self.device,
                                           self.steps_per_epoch)
         self.eval_step = make_eval_step(config, self.device)
@@ -252,6 +277,7 @@ class Trainer:
         if resume_from:
             mgr = ckpt_lib.CheckpointManager(resume_from, config=config)
             mgr.restore(self.state)
+            distributed.broadcast_state_(self.state.model)
             self.start_epoch = self.state.step // self.steps_per_epoch
             # keep the best val loss of the run before the resume
             best = mgr.best_metric("val_loss")
@@ -259,7 +285,8 @@ class Trainer:
                 self._resume_min_loss = best
         self.timings: dict[str, list[float]] = collections.defaultdict(list)
         self._val_iter = None
-        self.summary = _summary_writer(os.path.join(self.exp_dir, "logs"))
+        self.summary = (_summary_writer(os.path.join(self.exp_dir, "logs"))
+                        if self._is_main else None)
 
     def close(self):
         """Close the summary writer. Idempotent."""
@@ -314,7 +341,8 @@ class Trainer:
     def _fetch_metrics(metrics: dict) -> dict:
         """A dict of device scalars -> floats in one transfer (stacked on
         the device, one copy to the host): a float() per tensor would
-        synchronize once each."""
+        synchronize once each. The steps' metrics are already global (the
+        step all-reduced them), so this is a local copy on every rank."""
         keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
         fetched = {}
         if keys:
@@ -337,16 +365,17 @@ class Trainer:
         the val set is smaller than one val batch."""
         bs = self.config.val.batch_size
         if self._val_iter is None:
-            self._val_iter = make_batch_iterator(self.val_ds, bs,
-                                                 shuffle=False)
+            self._val_iter = make_batch_iterator(
+                self.val_ds, bs, shuffle=False, process_shard=self._shard)
         batch = next(self._val_iter, None)
         if batch is None:
-            self._val_iter = make_batch_iterator(self.val_ds, bs,
-                                                 shuffle=False)
+            self._val_iter = make_batch_iterator(
+                self.val_ds, bs, shuffle=False, process_shard=self._shard)
             batch = next(self._val_iter, None)
         return batch
 
     def _validate(self, val_batch, step: int) -> float:
+        """The val loss of one global val batch (the same on every rank)."""
         vmet, _, _ = self.eval_step(self.state, self._device_batch(val_batch))
         vmet = self._fetch_metrics(vmet)
         self._log("validate", vmet, step)
@@ -378,7 +407,8 @@ class Trainer:
                     self.train_ds, cfg.train.batch_size, shuffle=True,
                     seed=cfg.train.seed + epoch,
                     workers=cfg.train.num_workers,
-                    transform=self.batch_transform)
+                    transform=self.batch_transform,
+                    process_shard=self._shard)
                 staged = self._staged_batches(it)
                 steps = 0
                 step_end = None
@@ -406,7 +436,8 @@ class Trainer:
                         global_step += 1
                         steps += 1
 
-                        want_print = (i + 1) % print_interval == 0
+                        want_print = ((i + 1) % print_interval == 0
+                                      and self._is_main)
                         want_summary = ((i + 1) % summary_interval == 0
                                         and self.summary is not None)
                         if want_print or want_summary or cfg.train.debug_nans:
@@ -470,9 +501,10 @@ class Trainer:
                     self.dump_val_predictions(epoch)
 
                 val_str = f"{avg_val:.4f}" if avg_val is not None else "n/a"
-                print(f"Epoch {epoch + 1} time "
-                      f"{time.perf_counter() - epoch_start:.1f}s "
-                      f"avg_val_loss {val_str} best={is_best}")
+                if self._is_main:
+                    print(f"Epoch {epoch + 1} time "
+                          f"{time.perf_counter() - epoch_start:.1f}s "
+                          f"avg_val_loss {val_str} best={is_best}")
         finally:
             if profiler is not None:
                 profiler.stop()
@@ -484,8 +516,11 @@ class Trainer:
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
+        worker = (f"rank{distributed.rank()}" if self._shard is not None
+                  else None)
         profiler = profile(activities=activities, on_trace_ready=(
-            tensorboard_trace_handler(os.path.join(self.exp_dir, "logs"))))
+            tensorboard_trace_handler(os.path.join(self.exp_dir, "logs"),
+                                      worker_name=worker)))
         profiler.start()
         return profiler
 
@@ -493,25 +528,29 @@ class Trainer:
                              max_frames: int | None = None) -> None:
         """Full validation sweep -> one KITTI label file per frame in
         <exp_dir>/preds/<epoch + 1>/data, and the count of frames whose
-        candidates exceeded rpn.nms_pre_topk."""
+        candidates exceeded rpn.nms_pre_topk. Several processes each write
+        the frames they loaded; `max_frames` counts global frames, so every
+        process stops after the same batch."""
         cfg = self.config
         t0 = time.perf_counter()
         out_dir = os.path.join(self.exp_dir, "preds", str(epoch + 1), "data")
         os.makedirs(out_dir, exist_ok=True)
-        seen = 0
+        seen = global_seen = 0
         nms_saturated = 0
         for batch in make_batch_iterator(
                 self.val_ds, cfg.val.batch_size, shuffle=False,
-                drop_remainder=False):
-            if max_frames and seen >= max_frames:
+                drop_remainder=False, process_shard=self._shard):
+            if max_frames and global_seen >= max_frames:
                 break
+            global_seen += batch["num_real"]
             _, probs, deltas = self.eval_step(self.state,
                                               self._device_batch(batch))
             det, n_cand = self.decode_fn(probs, deltas)
             boxes, scores, valid, n_cand = (
                 t.cpu().numpy() for t in (det.boxes, det.scores, det.valid,
                                           n_cand))
-            num_real = batch["num_real"]
+            num_real = distributed.local_num_real(batch["num_real"],
+                                                  cfg.val.batch_size)
             nms_saturated += int((n_cand[:num_real]
                                   > cfg.rpn.nms_pre_topk).sum())
             for b, tag in enumerate(batch["tags"][:num_real]):
@@ -529,7 +568,10 @@ class Trainer:
                 seen += 1
         self.timings["val_dump_s"].append(time.perf_counter() - t0)
         self.timings["val_dump_frames"].append(seen)
-        if nms_saturated:
+        if self._shard is not None:
+            seen, nms_saturated = (int(v) for v in distributed.all_reduce_(
+                [torch.tensor([seen, nms_saturated], device=self.device)])[0])
+        if nms_saturated and self._is_main:
             print(f"[saturation] nms_pre_topk dropped candidates on "
                   f"{nms_saturated}/{seen} val frames — consider raising "
                   f"rpn.nms_pre_topk")
