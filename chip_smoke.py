@@ -56,7 +56,22 @@ Phases, each fatal on failure:
      label dumps of every val frame, cli.eval over them; (d) where torch
      sees two cards or more, NCCL over two cards at Car B=8 a card: step
      time and frames/s a card beside phase 5's one-card step (otherwise it
-     says it did not run).
+     says it did not run);
+  8. the slice of the optimizer choice, the host voxelizer and the ghost
+     VFE: (a) the synthetic learning run through
+     voxelnet_tpu_torch/tools/synthetic_smoke.py's functions: Car, momentum
+     SGD, 300 steps at B=4 over 32 fixed frames, then 24 held-out frames
+     through make_inference_fn: every logged loss finite, the last below
+     half the first, cli.eval over the label dumps equal to the in-process
+     AP, run_copy launched every step and vfe_fused and dense_build at
+     eval; steps/s and AP@0.5/0.7, BEV and 3D; (b) the native host
+     voxelizer, built with the host C++ compiler (printed), bit-equal to
+     voxelize_np on the 3 vendored frames at the full Car grid, both
+     voxelizers' host frames/s, and one Trainer epoch with
+     train.host_voxelize on phase 6's tree: metrics finite, run_copy not
+     launched; (c) compat.bn_over_padding inference, Car B=2: run_copy and
+     dense_build launched, vfe_fused not, and the tiny f32 grid on the card
+     against the CPU.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing it when
 torch sees no CUDA device or any check fails.
@@ -90,11 +105,14 @@ from voxelnet_tpu_torch.kernels import _build, dense_build, run_copy, vfe_fused
 from voxelnet_tpu_torch.models.init import randomize_bn_
 from voxelnet_tpu_torch.models.voxelnet import (STAGES, build_model,
                                                 make_inference_fn)
-from voxelnet_tpu_torch.ops.voxelize import VoxelGridSpec, prepare
+from voxelnet_tpu_torch.ops.voxelize import (VoxelGridSpec, prepare,
+                                             resolve_host_voxelizer,
+                                             voxelize_np)
 from voxelnet_tpu_torch.parallel import distributed
 from voxelnet_tpu_torch.training.train_step import (TRAIN_STAGES,
                                                     create_train_state,
                                                     make_train_step)
+from voxelnet_tpu_torch.tools import synthetic_smoke
 from voxelnet_tpu_torch.training.trainer import Trainer
 from voxelnet_tpu_torch.utils import kitti
 
@@ -124,6 +142,14 @@ TIMING_FILES = 72
 DP_STEPS = 3
 DP_TIMED_STEPS = 5
 DP_TIMEOUT_S = 600
+# phase 8: the learning run's steps, batch, fixed and held-out frames and
+# its log interval; repetitions of the host voxelizers' timing
+LEARN_STEPS = 300
+LEARN_BATCH = 4
+LEARN_FRAMES = 32
+LEARN_EVAL_FRAMES = 24
+LEARN_LOG_EVERY = 10
+HOST_VOX_REPS = 5
 # the port's Car model: its f32 parameters, the gradient all-reduce's size
 CAR_PARAMS = 6_809_392
 # the PR whose design each kernel runs
@@ -356,6 +382,14 @@ def phase_kernels(config, model, frames, device, card):
         padded = torch.nn.functional.pad(prep.sorted_planar, (0, T))
         index = run_copy.gather_index(prep.run_start, T).contiguous()
         f32 = got.float()
+        # the dense grid's one torch call: index_copy_ of the rows into a
+        # new zero grid (with a spare row for padding), the plain
+        # version's core with the row targets computed once
+        nb, nc = got.shape[0], got.shape[2]
+        target = torch.where(
+            ids < n, torch.arange(nb, device=device)[:, None] * n
+            + ids.long(), nb * n).reshape(-1)
+        rows = got.reshape(-1, nc)
         # name -> (kernel, plain version, one torch call or None)
         times = {
             "vfe_fused": (timed(lambda: vfe_fused.vfe_fused(*args, T)),
@@ -366,7 +400,9 @@ def phase_kernels(config, model, frames, device, card):
                 timed(lambda: vfe_fused.vfe_fused_plain(*args8, T)), None),
             "dense_build": (timed(lambda: dense_build.dense_build(
                 got, ids, n)), timed(lambda: dense_build.dense_build_plain(
-                    got, ids, n)), None),
+                    got, ids, n)),
+                timed(lambda: got.new_zeros((nb * n + 1, nc)).index_copy_(
+                    0, target, rows))),
             "dense_build_f32": (timed(lambda: dense_build.dense_build(
                 f32, ids, n)), timed(lambda: dense_build.dense_build_plain(
                     f32, ids, n)), None),
@@ -458,9 +494,10 @@ def phase_main_path(model, frames, device):
     return launches
 
 
-def phase_small_reference(device):
-    """The same path at a tiny grid in f32: card against CPU."""
-    config = get_config("Car", **TINY)
+def phase_small_reference(device, compat=None):
+    """The same path at a tiny grid in f32: card against CPU (with the
+    `compat` overrides)."""
+    config = get_config("Car", **TINY, compat=compat or {})
     points, num = predict.stage_points(sample_frames()[:2], config,
                                        np.random.default_rng(SEED))
     check(int(num.min()) > 1000, f"tiny grid: only {num} points in the grid")
@@ -1088,8 +1125,161 @@ def phase_data_parallel(frames, device, seed, tmp, card, step_fps) -> dict:
     return a["launches"]
 
 
-def kernel_entry(name, times, errs, bounds, launches, infer_launches,
-                 train_launches, trainer_launches, dp_launches) -> dict:
+def ap_equal(a: float, b: float) -> bool:
+    """Equal within 1e-6, NaN (no ground truth in the bucket) equal to
+    itself."""
+    return (math.isnan(a) and math.isnan(b)) or abs(a - b) <= 1e-6
+
+
+def phase_learning_run(device, tmp, card) -> tuple[dict, dict]:
+    """(a) the synthetic learning run's functions: Car, momentum SGD,
+    LEARN_STEPS steps at B=4 over LEARN_FRAMES fixed frames, then
+    LEARN_EVAL_FRAMES held-out frames -> (train launches, eval launches)."""
+    print(f"[8a] learning run: tools/synthetic_smoke.py, Car, momentum "
+          f"0.9, {LEARN_STEPS} steps at B={LEARN_BATCH} over "
+          f"{LEARN_FRAMES} frames, {LEARN_EVAL_FRAMES} held-out frames")
+    sm = synthetic_smoke
+    config = sm.make_config("Car")
+    frames = sm.Frames(config, "Car")
+    optimizer = sm.make_optimizer(config, 0.005, LEARN_STEPS)
+    reset_launches()
+    run = sm.train(config, frames, optimizer, steps=LEARN_STEPS,
+                   num_frames=LEARN_FRAMES, batch=LEARN_BATCH, device=device,
+                   log_every=LEARN_LOG_EVERY, echo=lambda line: None)
+    train_launches = launch_counts()
+    losses = [row[1] for row in run.log]
+    print(f"  {LEARN_STEPS} steps in {run.seconds} s: "
+          f"{LEARN_STEPS / run.seconds} steps/s, "
+          f"{LEARN_STEPS * LEARN_BATCH / run.seconds} frames/s [{card}]; "
+          f"launches {train_launches}")
+    print("  loss every %d steps: %s" % (LEARN_LOG_EVERY, " ".join(
+        f"{v:.4f}" for v in losses)))
+    check(all(math.isfinite(v) for row in run.log for v in row[1:4]),
+          f"non-finite losses: {run.log}")
+    check(losses[-1] < 0.5 * losses[0],
+          f"the loss fell from {losses[0]} to {losses[-1]} only")
+    check(train_launches["run_copy"] == LEARN_STEPS
+          and train_launches["dense_build"] == LEARN_STEPS
+          and train_launches["vfe_fused"] == 0,
+          f"train launches {train_launches}, want run_copy and dense_build "
+          f"{LEARN_STEPS} each")
+    reset_launches()
+    held_out = sm.evaluate(config, run.state.model, frames,
+                           eval_frames=LEARN_EVAL_FRAMES, batch=LEARN_BATCH,
+                           device=device)
+    torch.cuda.synchronize()
+    eval_launches = launch_counts()
+    n_batches = LEARN_EVAL_FRAMES // LEARN_BATCH
+    check(eval_launches["vfe_fused"] == n_batches
+          and eval_launches["dense_build"] == n_batches
+          and eval_launches["run_copy"] == 0,
+          f"eval launches {eval_launches}, want vfe_fused and dense_build "
+          f"{n_batches} each")
+    ap = sm.score(held_out, "Car")
+    ap_cli = sm.score_dumps(*sm.dump_labels(
+        held_out, os.path.join(tmp, "learning_run")), "Car",
+        echo=lambda line: None)
+    check(all(ap_equal(ap_cli[k], v) for k, v in ap.items()),
+          f"cli.eval {ap_cli} vs in-process {ap}")
+    print(f"  held out: {sum(f.num_det for f in held_out)} detections, "
+          f"{sum(f.num_gt for f in held_out)} GT; moderate AP (in process "
+          f"= cli.eval): {json.dumps(ap)}; launches {eval_launches}")
+    del run
+    return train_launches, eval_launches
+
+
+def phase_host_voxelizer(frames, device, tmp, card) -> dict:
+    """(b) the native voxelizer against voxelize_np at the full Car grid,
+    both voxelizers' host frames/s, and a Trainer epoch with
+    train.host_voxelize on phase 6's tree -> its launches."""
+    print("[8b] host voxelizer: native build, bit-equal to voxelize_np, "
+          "host frames/s; a Trainer epoch with train.host_voxelize")
+    from voxelnet_tpu_torch import native
+
+    t0 = time.perf_counter()
+    fn = resolve_host_voxelizer("native")
+    print(f"  native built and loaded in {time.perf_counter() - t0} s by "
+          f"{native.compiler()}")
+    config = get_config("Car")
+    spec = VoxelGridSpec.from_object_config(config.object)
+    K = config.data.max_voxels
+    points, num = predict.stage_points(frames, config,
+                                       np.random.default_rng(SEED))
+    staged = [p[:n] for p, n in zip(points, num)]
+    for i, p in enumerate(staged):
+        a, b = voxelize_np(p, spec, K), fn(p, spec, K)
+        for name, x, y in zip(a._fields, a, b):
+            check(np.array_equal(x, y) and np.asarray(x).dtype
+                  == np.asarray(y).dtype,
+                  f"frame {i}: native {name} differs from voxelize_np")
+    print(f"  native == voxelize_np on {len(staged)} frames "
+          f"({[int(n) for n in num]} points, "
+          f"{[int(fn(p, spec, K).num_voxels) for p in staged]} voxels)")
+    rates = {}
+    for name, f in (("numpy", voxelize_np), ("native", fn)):
+        t0 = time.perf_counter()
+        for _ in range(HOST_VOX_REPS):
+            for p in staged:
+                f(p, spec, K)
+        rates[name] = HOST_VOX_REPS * len(staged) / (time.perf_counter()
+                                                     - t0)
+    print(f"  host voxelizer frames/s on one thread, Car grid, "
+          f"{K} slots: numpy {rates['numpy']}, native {rates['native']} "
+          f"({os.cpu_count()} host cores)")
+
+    data = os.path.join(tmp, "kitti")
+    hv = get_config("Car", train={"host_voxelize": True, "num_epochs": 1},
+                    data={"host_voxelizer": "native"})
+    reset_launches()
+    out = io.StringIO()
+    with Trainer(hv, os.path.join(data, "training"),
+                 os.path.join(data, "validation"),
+                 exp_dir=os.path.join(tmp, "exp_host_voxelize"),
+                 device=device) as tr, contextlib.redirect_stdout(out):
+        tr.train(print_interval=1, summary_interval=1000, val_interval=2)
+        steps = tr.timings["epoch_steps"]
+        epoch_s = tr.timings["epoch_s"]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    logged = [line for line in out.getvalue().splitlines()
+              if line.startswith(("Train ", "Epoch "))]
+    metrics = [float(v) for line in logged for v in re.findall(
+        r"(?:loss|reg|cls|avg_val_loss) (\S+)", line)]
+    print("\n".join(f"    {line}" for line in logged))
+    want_steps = TRAINER_FILES["training"] // hv.train.batch_size
+    check(steps == [want_steps], f"host_voxelize epoch steps {steps}")
+    check(len(metrics) == 3 * want_steps + 1
+          and all(math.isfinite(v) for v in metrics),
+          f"host_voxelize trainer metrics missing or not finite: {metrics}")
+    check(launches["run_copy"] == 0 and launches["dense_build"] > 0
+          and launches["vfe_fused"] == 0,
+          f"host_voxelize trainer launches {launches}: want no run_copy")
+    print(f"  Trainer epoch, Car B=2, host_voxelize: {epoch_s[0]} s, "
+          f"launches {launches} [{card}]")
+    return launches
+
+
+def phase_ghost_inference(frames, device) -> dict:
+    """(c) compat.bn_over_padding inference, Car B=2: the run-copy table
+    and the table VFE, no fused kernel -> its launches."""
+    print("[8c] compat.bn_over_padding inference: Car, bf16, B=2")
+    config = get_config("Car", compat={"bn_over_padding": True})
+    model = make_model(config, device)
+    reset_launches()
+    det = predict.predict(make_inference_fn(config, device), model,
+                          frames[:2], config, np.random.default_rng(SEED))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    counts = check_detections(det, config, 2)
+    check(launches["run_copy"] > 0 and launches["dense_build"] > 0
+          and launches["vfe_fused"] == 0,
+          f"bn_over_padding inference launches {launches}")
+    print(f"  valid detections {counts}; launches {launches}")
+    phase_small_reference(device, compat={"bn_over_padding": True})
+    return launches
+
+
+def kernel_entry(name, times, errs, bounds, launches, by_path) -> dict:
     """One kernel's object of the {"kernels": [...]} line: event and
     profiler device times of the kernel, its plain version and its one
     torch call, its bound, and extra shapes of the same kernel."""
@@ -1108,10 +1298,8 @@ def kernel_entry(name, times, errs, bounds, launches, infer_launches,
              "source": f"voxelnet_tpu_torch/csrc/{name}.cu",
              "replaces": REPLACES[name], "design_pr": DESIGN_PR[name],
              "launches": launches[name],
-             "launches_by_path": {"inference": infer_launches[name],
-                                  "train": train_launches[name],
-                                  "trainer": trainer_launches[name],
-                                  "data_parallel_rank0": dp_launches[name]},
+             "launches_by_path": {path: counts[name]
+                                  for path, counts in by_path.items()},
              "max_abs_err": errs[name], **cols("", name),
              "library_ms": lib["ms"] if lib else None,
              "library_device_ms": lib["device_ms"] if lib else None}
@@ -1173,6 +1361,9 @@ def main(argv=None):
         phase_trainer_timing(frames, device, args.seed, tmp, card, step_fps)
         dp_launches = phase_data_parallel(frames, device, args.seed, tmp,
                                           card, step_fps)
+        learn_train, learn_eval = phase_learning_run(device, tmp, card)
+        host_vox = phase_host_voxelizer(frames, device, tmp, card)
+    ghost = phase_ghost_inference(frames, device)
 
     # each kernel's count on the path of the slice that brought it: the
     # fused VFE runs only for inference, the others on the train step
@@ -1180,9 +1371,14 @@ def main(argv=None):
                 "dense_build": train_launches["dense_build"],
                 "run_copy": train_launches["run_copy"]}
     print(card)
-    entries = [kernel_entry(name, times, errs, bounds, launches,
-                            infer_launches, train_launches, trainer_launches,
-                            dp_launches)
+    by_path = {"inference": infer_launches, "train": train_launches,
+               "trainer": trainer_launches,
+               "data_parallel_rank0": dp_launches,
+               "learning_run_train": learn_train,
+               "learning_run_eval": learn_eval,
+               "host_voxelize_trainer": host_vox,
+               "bn_over_padding_inference": ghost}
+    entries = [kernel_entry(name, times, errs, bounds, launches, by_path)
                for name in KERNELS]
     entries[KERNELS.index("vfe_fused")].update(vfe_info)
     print(json.dumps({"kernels": entries}))

@@ -104,7 +104,8 @@ def test_dataset_matches_jax(kitti_root, mode):
 
 
 def test_host_voxelize_is_refused(kitti_root):
-    _, tcfg = configs()
+    """Host voxelization with a voxelizer the port does not have."""
+    _, tcfg = configs(overrides=merged(TINY, data={"host_voxelizer": "cuda"}))
     with pytest.raises(ValueError, match="host voxelizer"):
         dataset.KITTIDataset(kitti_root + "/training", tcfg,
                              host_voxelize=True)

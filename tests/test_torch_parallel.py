@@ -116,6 +116,10 @@ def _all_cases(tmp: str) -> dict:
                                             "remat": remat}),
             "state_dict": init, "batch": batch, "double": True,
             "steps_per_epoch": STEPS_PER_EPOCH})
+    cases["step-momentum"] = ("step", {
+        "overrides": F64, "state_dict": init, "batch": batch,
+        "double": True, "steps_per_epoch": STEPS_PER_EPOCH,
+        "momentum": 0.9, "steps": 2})
     jcfg, tcfg = configs(overrides=JAX_F64)
     variables = init_scale_biases(jax_variables(jcfg, seed=21), 21)
     cases["step-jax"] = ("step", {
@@ -241,6 +245,28 @@ def test_train_step_on_two_ranks_equals_one_process(dp, name):
         for k, v in want["state"].items():
             _close(got["state"][k], v, k)
     assert outs[0]["step-" + name]["metrics"]["voxels_clipped"] == 2
+
+
+def test_momentum_steps_on_two_ranks_equal_one_process(dp):
+    """Two f64 momentum steps on 2 ranks, each rank's trace made otherwise
+    and then broadcast from rank 0 (a resumed run): equal to one process
+    from rank 0's trace (loss, grad norm, parameters, BN stats and the
+    trace), and the ranks end bit-identical, traces included."""
+    cases, outs = dp
+    want = step_case(**cases["step-momentum"][1])
+    assert want["trace"] is not None
+    for o in outs:
+        got = o["step-momentum"]
+        assert got["disagree"] == 0
+        for k, v in want["metrics"].items():
+            assert got["metrics"][k] == pytest.approx(v, rel=REL), k
+        for k, v in want["state"].items():
+            _close(got["state"][k], v, k)
+        for i, (g, w) in enumerate(zip(got["trace"], want["trace"])):
+            _close(g, w, f"trace {i}")
+    for a, b in zip(outs[0]["step-momentum"]["trace"],
+                    outs[1]["step-momentum"]["trace"]):
+        assert torch.equal(a, b)
 
 
 def test_train_step_on_two_ranks_matches_jax_mesh(dp):

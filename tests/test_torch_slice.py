@@ -71,7 +71,10 @@ def test_resolver_maps_every_lowering_to_one_path(key, values):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    ({"compat": {"bn_over_padding": True}}, "bn_over_padding"),
+    # the fused kernel has only the masked max: an explicit request for it
+    # with the reference's ghost-activation VFE is refused, as in JAX
+    ({"compat": {"bn_over_padding": True}, "data": {"vfe_backend": "fused"}},
+     "bn_over_padding"),
     ({"system": {"num_model_shards": 2}}, "W-sharding"),
     ({"system": {"num_data_shards": 4}}, "no torch.distributed process"),
     ({"data": {"middle_backend": "nope"}}, "middle_backend"),
@@ -125,6 +128,9 @@ def test_port_imports_no_jax():
             "import voxelnet_tpu_torch.training.evaluate\n"
             "import voxelnet_tpu_torch.parallel.distributed\n"
             "import voxelnet_tpu_torch.parallel.mesh\n"
+            "import voxelnet_tpu_torch.native\n"
+            "import voxelnet_tpu_torch.tools.synthetic_smoke\n"
+            "import voxelnet_tpu_torch.tools.dump_report\n"
             "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
             "from voxelnet_tpu_torch.config import get_config\n"
             "get_config('Car').dump_yaml()\n"

@@ -308,7 +308,8 @@ def test_stager_close_stops_an_endless_source():
 
 
 @pytest.mark.parametrize("overrides,kw,match", [
-    ({"train": {"host_voxelize": True}}, {}, "host voxelizer"),
+    ({"train": {"host_voxelize": True}, "data": {"host_voxelizer": "cuda"}},
+     {}, "host voxelizer"),
     ({"system": {"num_data_shards": 2}}, {}, "no torch.distributed process"),
     ({"train": {"remat": "some"}}, {}, "remat"),
     ({}, {"num_vis_dump": 2}, "viz"),

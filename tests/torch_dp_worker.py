@@ -22,6 +22,7 @@ from voxelnet_tpu_torch.config import get_config
 from voxelnet_tpu_torch.models.bn import flax_batch_norm
 from voxelnet_tpu_torch.models.voxelnet import VoxelNet
 from voxelnet_tpu_torch.parallel import distributed
+from voxelnet_tpu_torch.training.optim import ClippedSGD, OptState
 from voxelnet_tpu_torch.training.train_step import (create_train_state,
                                                     make_train_step)
 
@@ -70,26 +71,40 @@ def bn_case(x, w, bn_state, channel_dim, mask=None) -> dict:
 
 
 def step_case(overrides, state_dict, batch, double=False,
-              steps_per_epoch=10) -> dict:
-    """One make_train_step call on this process's rows of `batch` (numpy,
-    global) from `state_dict` (the model in f64 when `double`): metrics,
-    the state_dict after the step, and how many ranks disagree with rank
-    0 on it afterwards."""
+              steps_per_epoch=10, momentum=None, steps=1) -> dict:
+    """`steps` make_train_step calls on this process's rows of `batch`
+    (numpy, global) from `state_dict` (the model in f64 when `double`):
+    metrics of the last, the state_dict after them, and how many ranks
+    disagree with rank 0 on it afterwards. With `momentum`, the optimizer
+    keeps a trace, which starts as a resumed run's would, different on
+    each rank until broadcast_state_ gives every rank rank 0's; the
+    traces are returned and held bit-identical across ranks too."""
     cfg = config(overrides)
     model = VoxelNet(cfg)
     model.load_state_dict(state_dict)
     if double:
         model.double()
-    state = create_train_state(cfg, model, device="cpu")
-    distributed.broadcast_state_(state.model)
+    optimizer = (None if momentum is None else
+                 ClippedSGD(cfg, steps_per_epoch, momentum=momentum))
+    state = create_train_state(cfg, model, device="cpu", optimizer=optimizer)
+    if momentum is not None:
+        gen = torch.Generator().manual_seed(100 + distributed.rank())
+        state.opt_state = OptState(count=0, trace=tuple(
+            1e-3 * torch.randn(t.shape, generator=gen, dtype=t.dtype)
+            for t in state.opt_state.trace))
+    distributed.broadcast_state_(state.model, state.opt_state)
     b = batch["points"].shape[0]
     local = {k: rows(v, b) for k, v in batch.items()}
-    state, metrics = make_train_step(cfg, "cpu", steps_per_epoch)(state,
-                                                                  local)
+    step = make_train_step(cfg, "cpu", steps_per_epoch, optimizer=optimizer)
+    for _ in range(steps):
+        state, metrics = step(state, local)
+    trace = state.opt_state.trace
     return {"metrics": {k: float(v) for k, v in metrics.items()},
             "state": {k: v.detach().clone()
                       for k, v in state.model.state_dict().items()},
-            "disagree": distributed.ranks_disagree(state.model)}
+            "trace": None if trace is None else [t.clone() for t in trace],
+            "disagree": distributed.ranks_disagree(state.model,
+                                                   state.opt_state)}
 
 
 def trainer_case(overrides, data, exp_dir, state_dict,

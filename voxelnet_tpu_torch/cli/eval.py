@@ -20,6 +20,45 @@ from voxelnet_tpu_torch.training.evaluate import (evaluate_ap,
 from voxelnet_tpu_torch.utils import kitti
 
 
+def frame_from_lines(pred_lines: list[str], gt_lines: list[str],
+                     cls_name: str, T=None, R=None, where: str = "") -> dict:
+    """One frame of prediction and ground-truth label lines -> the frame
+    dict of training/evaluate.evaluate_ap, as this CLI scores it."""
+    # split + filter prediction lines ONCE so all columns stay paired
+    fields = [ln.split() for ln in pred_lines]
+    keep = [(ln, fs) for ln, fs in zip(pred_lines, fields)
+            if fs and fs[0] == cls_name]
+    for _, fs in keep:
+        if len(fs) != 16:
+            raise ValueError(
+                f"{where}: prediction line has {len(fs)} fields — "
+                "expected 16 (15 KITTI fields + trailing score); a "
+                "15-field file would silently rank detections by "
+                "rotation_y")
+    pred_lines = [ln for ln, _ in keep]
+    fields = [fs for _, fs in keep]
+    # cls_name="" accepts every (pre-filtered) line, preserving order
+    pred_boxes = kitti.parse_label_lines(pred_lines, "", "lidar", T, R)
+    scores = np.array([float(fs[-1]) for fs in fields], np.float32)
+    # 2D boxes (devkit small-detection + DontCare rules) + alphas
+    # (AOS) from the emitted lines; heights of 0 mean the dump had no
+    # calib to project with -> rules unavailable for this frame
+    boxes2d = np.array([[float(v) for v in fs[4:8]] for fs in fields],
+                       np.float32).reshape(-1, 4)
+    heights = boxes2d[:, 3] - boxes2d[:, 1]
+    alphas = np.array([float(fs[3]) for fs in fields], np.float32)
+    frame = {
+        "pred_boxes": pred_boxes,
+        "pred_scores": scores,
+        "pred_alphas": alphas,
+        "gt": parse_gt_for_eval(gt_lines, cls_name, T, R),
+    }
+    if len(heights) == 0 or (heights > 0).any():
+        frame["pred_heights"] = heights
+        frame["pred_boxes2d"] = boxes2d
+    return frame
+
+
 def load_frames_from_dirs(preds_dir: str, gt_dir: str, cls_name: str,
                           calib_dir: str | None = None) -> list[dict]:
     frames = []
@@ -38,39 +77,8 @@ def load_frames_from_dirs(preds_dir: str, gt_dir: str, cls_name: str,
             pred_lines = f.readlines()
         with open(gt_path) as f:
             gt_lines = f.readlines()
-        # split + filter prediction lines ONCE so all columns stay paired
-        fields = [ln.split() for ln in pred_lines]
-        keep = [(ln, fs) for ln, fs in zip(pred_lines, fields)
-                if fs and fs[0] == cls_name]
-        for _, fs in keep:
-            if len(fs) != 16:
-                raise ValueError(
-                    f"{fname}: prediction line has {len(fs)} fields — "
-                    "expected 16 (15 KITTI fields + trailing score); a "
-                    "15-field file would silently rank detections by "
-                    "rotation_y")
-        pred_lines = [ln for ln, _ in keep]
-        fields = [fs for _, fs in keep]
-        # cls_name="" accepts every (pre-filtered) line, preserving order
-        pred_boxes = kitti.parse_label_lines(pred_lines, "", "lidar", T, R)
-        scores = np.array([float(fs[-1]) for fs in fields], np.float32)
-        # 2D boxes (devkit small-detection + DontCare rules) + alphas
-        # (AOS) from the emitted lines; heights of 0 mean the dump had no
-        # calib to project with -> rules unavailable for this frame
-        boxes2d = np.array([[float(v) for v in fs[4:8]] for fs in fields],
-                           np.float32).reshape(-1, 4)
-        heights = boxes2d[:, 3] - boxes2d[:, 1]
-        alphas = np.array([float(fs[3]) for fs in fields], np.float32)
-        frame = {
-            "pred_boxes": pred_boxes,
-            "pred_scores": scores,
-            "pred_alphas": alphas,
-            "gt": parse_gt_for_eval(gt_lines, cls_name, T, R),
-        }
-        if len(heights) == 0 or (heights > 0).any():
-            frame["pred_heights"] = heights
-            frame["pred_boxes2d"] = boxes2d
-        frames.append(frame)
+        frames.append(frame_from_lines(pred_lines, gt_lines, cls_name, T, R,
+                                       fname))
     return frames
 
 

@@ -10,7 +10,9 @@ subsample to max_points, run the detector, print the boxes.
 
 --checkpoint takes a checkpoint of the port's trainer (a checkpoints root,
 whose latest step is read, or one step dir); --weights a .npz of JAX
-variables (convert.save_npz). Without either the weights are a random init
+variables (convert.save_npz). Either is refused when it was trained with
+another `train.yaw_encoding` than the running config's; a .npz written
+without its decode knobs loads with a warning. Without either the weights are a random init
 from --seed, and "0 detections" is the expected output. --cfg reads the
 YAML subset of `voxelnet_tpu_torch/utils/yaml_subset.py`.
 """
@@ -80,7 +82,7 @@ def load_model(config, weights: str | None, seed: int, device,
     if checkpoint:
         model.load_state_dict(load_variables(checkpoint, config))
     elif weights:
-        model.load_state_dict(from_jax_variables(load_npz(weights)))
+        model.load_state_dict(from_jax_variables(load_npz(weights, config)))
     return model.to(device).eval()
 
 

@@ -326,11 +326,15 @@ def resolve_plan(config: VoxelNetConfig, train: bool = False) -> Plan:
     run-copy kernel for every table layout. The mesh's batch axes
     (`system.num_dcn_shards x num_data_shards`) are processes, one card
     each: their product must equal the running world size (1 without a
-    process group). Raises where the port cannot give the configured
-    semantics: the reference's ghost-activation VFE
-    (`compat.bn_over_padding`), a 'model' axis (`num_model_shards > 1`), a
-    batch mesh that is not the world size (parallel/mesh.py); for
-    `train=True`, a `train.remat` other than 'none', 'seams' or 'full'.
+    process group). `compat.bn_over_padding` (the reference's
+    ghost-activation VFE) takes the table VFE at inference, since the fused
+    kernel implements only the masked max. Raises where the port cannot
+    give the configured semantics, with the JAX resolvers' messages where
+    they have one: `data.vfe_backend='fused'` with `bn_over_padding`,
+    `train_vfe_backend='planar'` with `train.host_voxelize`, a 'model' axis
+    (`num_model_shards > 1`), a batch mesh that is not the world size
+    (parallel/mesh.py); for `train=True`, a `train.remat` other than
+    'none', 'seams' or 'full'.
     """
     data = config.data
     _check("middle_backend", data.middle_backend, MIDDLE_BACKENDS)
@@ -340,10 +344,16 @@ def resolve_plan(config: VoxelNetConfig, train: bool = False) -> Plan:
     _check("fold_bn", data.fold_bn, FOLD_BN)
     _check("train_vfe_backend", data.train_vfe_backend, TRAIN_VFE_BACKENDS)
     _check("voxelizer_backend", data.voxelizer_backend, VOXELIZER_BACKENDS)
-    if config.compat.bn_over_padding:
+    if config.compat.bn_over_padding and data.vfe_backend == "fused":
         raise ValueError(
-            "compat.bn_over_padding (reference ghost-activation VFE) is not "
-            "implemented by the port")
+            "data.vfe_backend='fused' is incompatible with "
+            "compat.bn_over_padding (reference ghost-activation "
+            "semantics) — use the 'xla' backend")
+    if config.train.host_voxelize and data.train_vfe_backend == "planar":
+        raise ValueError(
+            "data.train_vfe_backend='planar' voxelizes on device — "
+            "incompatible with train.host_voxelize (pipeline feeds "
+            "pre-built (B, K, T, 7) buffers)")
     procs = process_mesh(config.system)
     if config.train.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(

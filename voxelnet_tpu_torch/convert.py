@@ -11,13 +11,24 @@ The port's modules carry the flax module names, so a flax path
   batch_stats mean / var                -> running_mean / running_var
 
 Trees are nested dicts of numpy arrays; `save_npz`/`load_npz` store them
-flattened under 'params/...' and 'batch_stats/...' keys.
+flattened under 'params/...' and 'batch_stats/...' keys, and the decode
+knobs of the config the weights were trained with under 'meta/decode' (a
+JSON string): `train.yaw_encoding` with the `object` and `rpn` settings
+that decoding reads, as the port's checkpoints store them. A model trained
+with `yaw_encoding='sin'` decodes wrong yaws under 'delta', so `load_npz`
+refuses such a file when given the running config, and warns on a file
+written without the knobs.
 """
 
 from __future__ import annotations
 
+import json
+import warnings
+
 import numpy as np
 import torch
+
+META_KEY = "meta/decode"
 
 _BN_STATS = {"mean": "running_mean", "var": "running_var"}
 _BN_PARAMS = {"scale": "weight", "bias": "bias"}
@@ -99,17 +110,56 @@ def to_jax_variables(state_dict) -> dict:
     return out
 
 
-def save_npz(path: str, variables) -> None:
+def decode_knobs(config_dict: dict) -> dict:
+    """The settings of a config (as `to_dict()`) that decoding reads."""
+    return {"yaw_encoding": config_dict["train"]["yaw_encoding"],
+            "object": config_dict["object"], "rpn": config_dict["rpn"]}
+
+
+def check_decode(knobs: dict, config, where: str) -> None:
+    """Refuse weights whose yaw encoding differs from `config`'s: their
+    regression maps would decode wrong."""
+    want = config.train.yaw_encoding
+    got = knobs["yaw_encoding"]
+    if got != want:
+        raise ValueError(
+            f"{where} was trained with train.yaw_encoding={got!r}, the "
+            f"running config has {want!r}: its regression maps would decode "
+            "wrong")
+
+
+def save_npz(path: str, variables, config=None) -> None:
+    """Write `variables` flat; with `config`, its decode knobs too."""
     flat = {}
     for col in ("params", "batch_stats"):
         for p, leaf in _flatten(variables.get(col, {})):
             flat["/".join((col,) + p)] = np.asarray(leaf, np.float32)
+    if config is not None:
+        flat[META_KEY] = np.asarray(json.dumps(decode_knobs(
+            config.to_dict())))
     np.savez(path, **flat)
 
 
-def load_npz(path: str) -> dict:
-    out: dict = {"params": {}, "batch_stats": {}}
+def load_npz(path: str, config=None) -> dict:
+    """-> {'params', 'batch_stats', 'meta'}: 'meta' holds the decode knobs
+    the file was saved with, or None for a file written without them.
+    With `config` (the running config): a file whose yaw encoding differs
+    is refused, and a file without knobs loads with a warning."""
+    out: dict = {"params": {}, "batch_stats": {}, "meta": None}
     with np.load(path) as z:
         for key in z.files:
-            _insert(out, tuple(key.split("/")), z[key])
+            if key == META_KEY:
+                out["meta"] = json.loads(str(z[key]))
+            else:
+                _insert(out, tuple(key.split("/")), z[key])
+    if config is not None:
+        if out["meta"] is None:
+            warnings.warn(
+                f"{path} holds no decode knobs (written without a config): "
+                "its train.yaw_encoding cannot be checked, and weights "
+                "trained with another encoding than the running config's "
+                f"({config.train.yaw_encoding!r}) decode wrong yaws",
+                stacklevel=2)
+        else:
+            check_decode(out["meta"], config, path)
     return out

@@ -63,6 +63,25 @@ def rotated_iou_2d(box1: np.ndarray, box2: np.ndarray) -> float:
     return inter / union if union > 0 else 0.0
 
 
+RASTER_COLLISION_NEEDS_CV2 = (
+    "compat.raster_collision rasterizes the augmentation's collision check "
+    "with cv2, which does not import here; the numpy rasterizer that would "
+    "replace it comes with the viz module (ROADMAP.md queue 1 item 12). "
+    "Set compat.raster_collision=false (the exact rotated-rectangle IoU)")
+
+
+def check_raster_collision(config) -> None:
+    """Refuse `compat.raster_collision` where cv2 does not import, when a
+    dataset or trainer is built rather than on the first augmented frame
+    of a pipeline worker."""
+    if not config.compat.raster_collision:
+        return
+    try:
+        import cv2  # noqa: F401
+    except ImportError as e:
+        raise ValueError(RASTER_COLLISION_NEEDS_CV2) from e
+
+
 def raster_iou_2d(box1: np.ndarray, box2: np.ndarray, obj_config,
                   image_hw: tuple[int, int] = (375, 1242)) -> float:
     """Reference-parity BEV IoU via cv2 polygon rasterization.
@@ -77,7 +96,8 @@ def raster_iou_2d(box1: np.ndarray, box2: np.ndarray, obj_config,
     identical-or-empty (the reference's `indiv == 0` early-out).
 
     Needs cv2 (imported here, so the default path and the module's import
-    do not).
+    do not; `check_raster_collision` refuses the flag up front without
+    it).
     """
     import cv2
 

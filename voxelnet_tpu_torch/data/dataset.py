@@ -7,9 +7,12 @@ carries
   gt_boxes   (G_max, 7) lidar boxes + gt_mask
   label lines / tag / paths (host-side eval)
 
-Voxelization runs on the device (training/train_step.py). The JAX
-package's host voxelization mode (`host_voxelize=True`, `voxelize_np` and
-its C++ twin) is not ported yet and raises.
+and, with `host_voxelize=True` (train.host_voxelize), the voxel table of
+its capped points built on the host by `data.host_voxelizer`
+(ops/voxelize.resolve_host_voxelizer: `voxelize_np` or its C++ twin):
+voxel_features (K_max, T, 7), voxel_coords (K_max, 3), voxel_counts
+(K_max,). Otherwise voxelization runs on the device
+(training/train_step.py).
 """
 
 from __future__ import annotations
@@ -24,13 +27,9 @@ import numpy as np
 from voxelnet_tpu_torch.config import VoxelNetConfig
 from voxelnet_tpu_torch.data import augment as augment_lib
 from voxelnet_tpu_torch.ops import voxelize as voxelize_lib
-from voxelnet_tpu_torch.ops.voxelize import VoxelGridSpec
+from voxelnet_tpu_torch.ops.voxelize import (VoxelGridSpec,
+                                             resolve_host_voxelizer)
 from voxelnet_tpu_torch.utils import kitti
-
-HOST_VOXELIZE_MISSING = (
-    "host_voxelize=True (train.host_voxelize) needs the host voxelizer "
-    "(voxelize_np / native/voxelize.cpp), which the port does not have yet "
-    "(ROADMAP.md queue 1 item 11); the port voxelizes on the device")
 
 
 @dataclass
@@ -45,6 +44,10 @@ class Example:
     image_path: str | None = None
     points_clipped: bool = False   # raw N exceeded data.max_points
     gt_clipped: bool = False       # raw GT count exceeded data.max_gt_boxes
+    # the host voxel table (host_voxelize=True only)
+    voxel_features: np.ndarray | None = None   # (K_max, T, 7) f32
+    voxel_coords: np.ndarray | None = None     # (K_max, 3) i32
+    voxel_counts: np.ndarray | None = None     # (K_max,) i32
 
 
 class KITTIDataset:
@@ -53,15 +56,19 @@ class KITTIDataset:
     def __init__(self, data_dir: str, config: VoxelNetConfig,
                  augment: bool = False, test: bool = False,
                  host_voxelize: bool = False, seed: int = 0):
-        if host_voxelize:
-            raise ValueError(HOST_VOXELIZE_MISSING)
+        if augment:
+            augment_lib.check_raster_collision(config)
         self.data_dir = data_dir
         self.config = config
         self.augment = augment
         self.test = test
+        self.host_voxelize = host_voxelize
         self.seed = seed
         self.epoch = 0
         self.spec = VoxelGridSpec.from_object_config(config.object)
+        if host_voxelize:
+            self._voxelize = resolve_host_voxelizer(
+                config.data.host_voxelizer)
 
         # bounded in-RAM frame cache: epochs after the first skip the .bin
         # read (and the grid crop when no augmentation moves points across
@@ -110,9 +117,9 @@ class KITTIDataset:
         once (cached), and every later copy (shuffle gather, pad, collate,
         upload) moves half the bytes. Only when the train step dequantizes
         (train.upload_points='i16q') and no augmentation needs f32 points
-        on the host."""
+        on the host (augmentation, host voxelization)."""
         return (self.config.train.upload_points == "i16q"
-                and not self.augment)
+                and not self.host_voxelize and not self.augment)
 
     def _load_points(self, tag: str, velo_path: str) -> np.ndarray:
         """Raw cloud, through the frame cache. Without augmentation the
@@ -187,20 +194,28 @@ class KITTIDataset:
                        if points.dtype == np.int16 else np.float32)
         pts[:n] = points[:n]
 
-        return Example(
+        ex = Example(
             tag=tag, points=pts, num_points=np.int32(n),
             gt_boxes=gt_boxes, gt_mask=gt_mask,
             label_lines=label_lines, image_path=img_path,
             points_clipped=len(points) > self.config.data.max_points,
             gt_clipped=len(gt_lidar) > self.config.data.max_gt_boxes,
         )
+        if self.host_voxelize:
+            vox = self._voxelize(points[:n], self.spec,
+                                 max_voxels=self.config.data.max_voxels)
+            ex.voxel_features = vox.features
+            ex.voxel_coords = vox.coords
+            ex.voxel_counts = vox.counts
+        return ex
 
 
 def collate(examples: list[Example]) -> dict:
     """Stack Examples into fixed-shape arrays. `clipped_points` /
     `clipped_gt` count examples whose raw cloud / GT list exceeded the
-    static caps (saturation telemetry the trainer logs)."""
-    return {
+    static caps (saturation telemetry the trainer logs). Host voxel tables,
+    when the examples carry them, are stacked too."""
+    batch = {
         "tags": [e.tag for e in examples],
         "points": np.stack([e.points for e in examples]),
         "num_points": np.asarray([e.num_points for e in examples], np.int32),
@@ -210,6 +225,10 @@ def collate(examples: list[Example]) -> dict:
         "clipped_points": sum(int(e.points_clipped) for e in examples),
         "clipped_gt": sum(int(e.gt_clipped) for e in examples),
     }
+    if examples[0].voxel_features is not None:
+        for key in ("voxel_features", "voxel_coords", "voxel_counts"):
+            batch[key] = np.stack([getattr(e, key) for e in examples])
+    return batch
 
 
 def plan_batches(num_examples: int, batch_size: int, shuffle: bool = True,

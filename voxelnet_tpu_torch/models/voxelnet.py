@@ -2,7 +2,9 @@
 
 Counterpart of `voxelnet_tpu/models/voxelnet.py` (`VoxelNet`,
 `make_inference_fn`). Inference runs, in order: sort + run analysis
-(ops/voxelize.prepare), the fused voxel-table + VFE kernel, the streaming
+(ops/voxelize.prepare), the fused voxel-table + VFE kernel (with
+`compat.bn_over_padding`: the run-copy table kernel and the table VFE in
+eval mode, as the JAX resolver takes its XLA path), the streaming
 dense-grid kernel, the Conv3D middle stack, the RPN, sigmoid + anchor
 decode, and score gate + top-k + rotated-BEV NMS. `VoxelNet.forward` is
 the flax module's `__call__` on an explicit voxel table, in whatever mode
@@ -32,7 +34,8 @@ from voxelnet_tpu_torch.models.scatter import scatter_to_dense_streamed
 from voxelnet_tpu_torch.models.vfe import FeatureLearningNet
 from voxelnet_tpu_torch.ops import box_coding, nms
 from voxelnet_tpu_torch.ops.anchors import anchors_flat
-from voxelnet_tpu_torch.ops.voxelize import VoxelGridSpec, prepare
+from voxelnet_tpu_torch.ops.voxelize import (VoxelGridSpec, prepare,
+                                             voxelize_table)
 
 STAGES = ("prepare", "vfe", "dense", "middle", "rpn", "decode", "nms")
 
@@ -45,7 +48,8 @@ class VoxelNet(nn.Module):
         obj = config.object
         self.grid_dzyx = tuple(obj.grid_size)
         self.compute_dtype = getattr(torch, config.train.compute_dtype)
-        self.feature_net = FeatureLearningNet(obj.points_per_voxel)
+        self.feature_net = FeatureLearningNet(
+            obj.points_per_voxel, config.compat.bn_over_padding)
         self.middle = MiddleLayers(cin=128)
         self.rpn = RPN(cin=64 * depth_out(obj.depth),
                        block1_stride=config.rpn.block1_stride)
@@ -162,9 +166,15 @@ def make_inference_fn(config: VoxelNetConfig,
     anchors = torch.from_numpy(anchors_flat(config.object)).to(device)
     obj, rpn_cfg = config.object, config.rpn
     max_voxels = config.data.max_voxels
+    table_vfe = config.compat.bn_over_padding
     cache: dict = {}
 
     def prepared(model: VoxelNet) -> VoxelNet:
+        if model.feature_net.bn_over_padding != table_vfe:
+            raise ValueError(
+                f"the model was built with compat.bn_over_padding="
+                f"{model.feature_net.bn_over_padding}, the inference config "
+                f"has {table_vfe}")
         versions = _versions(model)
         ref = cache.get("model")
         if ref is None or ref() is not model or cache["versions"] != versions:
@@ -184,12 +194,20 @@ def make_inference_fn(config: VoxelNetConfig,
         num_points = torch.as_tensor(num_points, dtype=torch.int32,
                                      device=device)
         mark(marks, "start", device)
-        prep = prepare(points, num_points, spec, max_voxels)
-        mark(marks, "prepare", device)
-        voxelwise = net.feature_net(prep)
+        if table_vfe:
+            vox = voxelize_table(points, num_points, spec, max_voxels)
+            mark(marks, "prepare", device)
+            voxelwise = net.feature_net.table(vox.features, vox.counts,
+                                              dtype)
+            coords, counts = vox.coords, vox.counts
+        else:
+            prep = prepare(points, num_points, spec, max_voxels)
+            mark(marks, "prepare", device)
+            voxelwise = net.feature_net(prep)
+            coords, counts = prep.coords, prep.counts
         mark(marks, "vfe", device)
-        dense = scatter_to_dense_streamed(voxelwise, prep.coords,
-                                          prep.counts, obj.grid_size)
+        dense = scatter_to_dense_streamed(voxelwise, coords, counts,
+                                          obj.grid_size)
         mark(marks, "dense", device)
         bev = net.middle(dense.to(dtype))
         mark(marks, "middle", device)

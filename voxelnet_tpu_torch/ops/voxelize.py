@@ -2,7 +2,8 @@
 and the explicit (B, K, T, 7) voxel table of the train and eval steps.
 
 Counterpart of `voxelnet_tpu/ops/voxelize.py` (`VoxelGridSpec`,
-`in_grid_mask`, `pad_points`, `POINT_I16_SCALES` with
+`in_grid_mask`, `pad_points`, the host voxelizer `voxelize_np` with
+`resolve_host_voxelizer`, `POINT_I16_SCALES` with
 `quantize_points_i16`/`dequantize_points_i16`,
 `_sort_stage`, `_pallas_prepare` with the planar layout, `_decode_zyx`,
 `_finalize`, and `voxelize_batch_jax` on the run-copy table). The
@@ -53,7 +54,9 @@ class Prepared(NamedTuple):
 
 
 class Voxels(NamedTuple):
-    """Batched voxel table (`voxelize_table`)."""
+    """Batched voxel table (`voxelize_table`), or one frame's numpy table
+    from the host voxelizer (`voxelize_np`: no batch axis, the voxel counts
+    as ints)."""
 
     features: torch.Tensor        # (B, K, T, 7) f32: x, y, z, r, offsets
     coords: torch.Tensor          # (B, K, 3) i32 zyx; (0, 0, 0) = empty
@@ -97,6 +100,102 @@ def in_grid_mask(points: np.ndarray, spec: VoxelGridSpec) -> np.ndarray:
 def crop_points(points: np.ndarray, spec: VoxelGridSpec) -> np.ndarray:
     pts = np.asarray(points, np.float32).reshape(-1, 4)
     return pts[in_grid_mask(pts, spec)]
+
+
+def voxelize_np(points: np.ndarray, spec: VoxelGridSpec,
+                max_voxels: int | None = None, shuffle: bool = False,
+                rng: np.random.Generator | None = None) -> Voxels:
+    """One frame on the host, with the reference's semantics
+    (voxelnet/utils.py:10-100): shift the points, bin them by floor(x / s)
+    in f32, crop to the grid, keep the first T points of each voxel in
+    arrival order, then append the offsets from the centroid of the stored
+    points. Voxels come in ascending (z * H + y) * W + x order; above
+    `max_voxels` the lowest ids are kept (a cap the ragged reference does
+    not have). `shuffle` permutes the points first, from `rng`.
+
+    -> Voxels of numpy arrays: features (K, T, 7) f32, coords (K, 3) i32
+    zyx, counts (K,) i32 (K = max_voxels when given, padding zeroed),
+    num_voxels and num_voxels_raw as ints.
+    """
+    D, H, W = spec.grid_dzyx
+    T = spec.max_points_per_voxel
+    pts = np.asarray(points, np.float32).reshape(-1, 4)
+    if shuffle:
+        rng = rng or np.random.default_rng()
+        pts = pts[rng.permutation(len(pts))]
+
+    shifted = pts[:, :3] + np.asarray(spec.offset_xyz, np.float32)
+    vz = np.floor(shifted[:, 2] / np.float32(spec.voxel_size_zyx[0])
+                  ).astype(np.int64)
+    vy = np.floor(shifted[:, 1] / np.float32(spec.voxel_size_zyx[1])
+                  ).astype(np.int64)
+    vx = np.floor(shifted[:, 0] / np.float32(spec.voxel_size_zyx[2])
+                  ).astype(np.int64)
+    inside = ((vz >= 0) & (vz < D) & (vy >= 0) & (vy < H)
+              & (vx >= 0) & (vx < W))
+    pts, vz, vy, vx = pts[inside], vz[inside], vy[inside], vx[inside]
+
+    linear = (vz * H + vy) * W + vx
+    uniq, inverse = np.unique(linear, return_inverse=True)
+    K = len(uniq)
+
+    # each point's slot in its voxel, in arrival order: a stable sort by
+    # voxel, then the position in the run
+    order = np.argsort(inverse, kind="stable")
+    inv_sorted = inverse[order]
+    run_start = np.r_[0, np.flatnonzero(np.diff(inv_sorted)) + 1]
+    starts = np.repeat(run_start, np.diff(np.r_[run_start, len(inv_sorted)]))
+    slot = np.empty(len(inv_sorted), np.int64)
+    slot[order] = np.arange(len(inv_sorted)) - starts
+
+    keep = slot < T
+    features = np.zeros((K, T, 7), np.float32)
+    features[inverse[keep], slot[keep], :4] = pts[keep]
+    counts = np.minimum(np.bincount(inverse, minlength=K), T).astype(np.int32)
+
+    # centroid offsets over the stored points (voxelnet/utils.py:86-88)
+    centroid = features[:, :, :3].sum(axis=1, keepdims=True) / np.maximum(
+        counts, 1).astype(np.float32).reshape(K, 1, 1)
+    point_mask = (np.arange(T)[None, :] < counts[:, None])[..., None]
+    features[:, :, 4:7] = (features[:, :, :3] - centroid) * point_mask
+
+    coords = np.stack([uniq // (H * W), (uniq // W) % H, uniq % W],
+                      axis=1).astype(np.int32)
+    if max_voxels is None:
+        return Voxels(features, coords, counts, K, K)
+    k = min(K, max_voxels)
+    feat = np.zeros((max_voxels, T, 7), np.float32)
+    crd = np.zeros((max_voxels, 3), np.int32)
+    cnt = np.zeros((max_voxels,), np.int32)
+    feat[:k], crd[:k], cnt[:k] = features[:k], coords[:k], counts[:k]
+    return Voxels(feat, crd, cnt, k, K)
+
+
+HOST_VOXELIZERS = ("auto", "native", "numpy")
+
+
+def resolve_host_voxelizer(configured: str = "auto"):
+    """`data.host_voxelizer` -> a callable with the signature of
+    `voxelize_np(points, spec, max_voxels)`: 'numpy' is `voxelize_np`;
+    'native' the C++ twin (voxelnet_tpu_torch/native, built at first use
+    with the host C++ compiler), and it raises when the library does not
+    build; 'auto' the C++ twin when it builds and loads, else numpy. Both
+    give bit-equal tables. 'auto' prints which one it took."""
+    if configured not in HOST_VOXELIZERS:
+        raise ValueError(f"data.host_voxelizer={configured!r}: no such host "
+                         f"voxelizer, expected one of {HOST_VOXELIZERS}")
+    if configured == "numpy":
+        return voxelize_np
+    from voxelnet_tpu_torch import native
+
+    if configured == "native":
+        native.load()               # raises with the compiler's output
+        return native.voxelize_native
+    fn, took = ((native.voxelize_native, f"native ({native.compiler()})")
+                if native.available() else
+                (voxelize_np, f"numpy (native: {native.load_error()})"))
+    print(f"data.host_voxelizer='auto': {took}", flush=True)
+    return fn
 
 
 def pad_points(points: np.ndarray, max_points: int,

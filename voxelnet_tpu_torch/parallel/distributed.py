@@ -11,8 +11,9 @@ and the places where the global batch meets are collectives:
     of the train and eval steps (training/train_step.py). The loss is a
     sum over frames, so the global gradient is the SUM of the processes'
     gradients, not their mean;
-  * `broadcast_state_`: the model's parameters and buffers from rank 0,
-    after init and after a restore;
+  * `broadcast_state_`: the model's parameters and buffers and the
+    optimizer's momentum trace from rank 0, after init and after a
+    restore;
   * `barrier`: after rank 0 writes a checkpoint.
 
 Only all_reduce, broadcast and barrier are used: gloo has them for CUDA
@@ -67,8 +68,10 @@ def initialize(coordinator_address: str | None = None,
     VOXELNET_COORDINATOR (host:port, or any torch init URL such as
     file://...) / VOXELNET_NUM_PROCESSES / VOXELNET_PROCESS_ID; else from
     torchrun's MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK. The device is
-    `device`, else cuda:LOCAL_RANK where torch sees a card (LOCAL_RANK, or
-    the rank modulo the card count), else the CPU. The backend is
+    `device`, else cuda:LOCAL_RANK (LOCAL_RANK, or the rank modulo the
+    card count); without a card `device` must be given ("cpu"): a
+    process that meant to train on a card does not fall back to the CPU
+    unseen. The backend is
     `backend`, else nccl for a CUDA device and gloo for the CPU. A rank
     that waits `timeout_s` seconds on a collective fails instead of
     hanging."""
@@ -87,12 +90,14 @@ def initialize(coordinator_address: str | None = None,
                          else num_processes)
         process_id = int(env["RANK"]) if process_id is None else process_id
     if device is None:
-        if torch.cuda.is_available():
-            local = int(env.get("LOCAL_RANK",
-                                process_id % torch.cuda.device_count()))
-            device = torch.device("cuda", local)
-        else:
-            device = torch.device("cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "distributed.initialize(device=None) picks a card, and torch "
+                "sees none: pass device='cpu' (with the gloo backend) to run "
+                "this process on the CPU")
+        local = int(env.get("LOCAL_RANK",
+                            process_id % torch.cuda.device_count()))
+        device = torch.device("cuda", local)
     device = torch.device(device)
     if device.type == "cuda":
         if device.index is None:
@@ -189,24 +194,38 @@ def all_reduce_(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
         flat.split([t.numel() for t in tensors]), tensors)]
 
 
+def _state_tensors(model: torch.nn.Module, opt_state) -> list[torch.Tensor]:
+    """The model's parameters and buffers, then the optimizer state's
+    momentum trace (training/optim.OptState) when it has one."""
+    tensors = list(model.parameters()) + list(model.buffers())
+    if opt_state is not None and opt_state.trace is not None:
+        tensors += list(opt_state.trace)
+    return tensors
+
+
 @torch.no_grad()
-def broadcast_state_(model: torch.nn.Module, src: int = 0) -> None:
-    """Copy `src`'s parameters and buffers into every process's model."""
+def broadcast_state_(model: torch.nn.Module, opt_state=None,
+                     src: int = 0) -> None:
+    """Copy `src`'s parameters and buffers, and the momentum trace of
+    `opt_state` (training/optim.OptState), into every process's, in place.
+    The update count is the same on every process by construction (every
+    rank restores the same checkpoint step)."""
     if world_size() == 1:
         return
-    for t in list(model.parameters()) + list(model.buffers()):
+    for t in _state_tensors(model, opt_state):
         dist.broadcast(t.data, src)
 
 
 @torch.no_grad()
-def ranks_disagree(model: torch.nn.Module) -> int:
-    """The number of processes whose parameters and buffers are not
-    bit-equal to rank 0's (0 in a world of one)."""
+def ranks_disagree(model: torch.nn.Module, opt_state=None) -> int:
+    """The number of processes whose parameters and buffers (and momentum
+    trace of `opt_state`) are not bit-equal to rank 0's (0 in a world of
+    one)."""
     if world_size() == 1:
         return 0
     differ = torch.zeros((), dtype=torch.float64,
                          device=next(model.parameters()).device)
-    for t in list(model.parameters()) + list(model.buffers()):
+    for t in _state_tensors(model, opt_state):
         ref = t.detach().clone()
         dist.broadcast(ref, 0)
         if not torch.equal(ref, t.detach()):

@@ -5,12 +5,15 @@ Layout: `<dir>/<step>/state.pt` and `<dir>/<step>/metrics.json`. A step dir
 is written under a temporary name and renamed into place with `os.replace`,
 so a killed run leaves no half checkpoint. `state.pt` (torch.save) holds
 CPU copies of the model's state_dict (parameters and BN running stats),
-the optimizer's update count, the train step, the metrics, the whole config
-dict, and the decode knobs: `train.yaw_encoding` with the `object` and
+the optimizer's update count and its momentum trace (None without
+momentum), the train step, the metrics, the whole config dict, and the
+decode knobs: `train.yaw_encoding` with the `object` and
 `rpn` settings that decoding reads. The JAX package does not store them;
 here `restore` and `load_variables` refuse a checkpoint whose yaw encoding
 differs from the running config, whose decode would misread the
-regression maps.
+regression maps. `restore` also refuses an optimizer state that does not
+fit the running optimizer: a momentum trace for an optimizer without
+momentum, or the reverse.
 
 Retention is Orbax's, as the JAX manager configures it (`max_to_keep=keep`,
 `best_fn` = the `val_loss` metric or +inf, `best_mode='min'`): after each
@@ -32,27 +35,13 @@ import shutil
 
 import torch
 
+from voxelnet_tpu_torch.convert import check_decode, decode_knobs
 from voxelnet_tpu_torch.parallel import distributed
 from voxelnet_tpu_torch.training.optim import OptState
 
 STATE_FILE = "state.pt"
 METRICS_FILE = "metrics.json"
 _TMP_PREFIX = ".tmp-"
-
-
-def _decode_knobs(config_dict: dict) -> dict:
-    return {"yaw_encoding": config_dict["train"]["yaw_encoding"],
-            "object": config_dict["object"], "rpn": config_dict["rpn"]}
-
-
-def _check_decode(saved: dict, config, where: str) -> None:
-    want = config.train.yaw_encoding
-    got = saved["decode"]["yaw_encoding"]
-    if got != want:
-        raise ValueError(
-            f"{where} was trained with train.yaw_encoding={got!r}, the "
-            f"running config has {want!r}: its regression maps would decode "
-            "wrong")
 
 
 def _load(step_dir: str) -> dict:
@@ -116,10 +105,13 @@ class CheckpointManager:
             "model": {k: v.detach().to("cpu", copy=True)
                       for k, v in state.model.state_dict().items()},
             "opt_count": int(state.opt_state.count),
+            "opt_trace": (None if state.opt_state.trace is None else
+                          [t.detach().to("cpu", copy=True)
+                           for t in state.opt_state.trace]),
             "step": int(state.step),
             "metrics": metrics,
             "config": config_dict,
-            "decode": _decode_knobs(config_dict),
+            "decode": decode_knobs(config_dict),
         }
         tmp = os.path.join(self._dir, f"{_TMP_PREFIX}{step}-{os.getpid()}")
         os.makedirs(tmp)
@@ -165,17 +157,41 @@ class CheckpointManager:
     def restore(self, state, step: int | None = None):
         """Load step `step` (default the latest) into `state` in place:
         the model's parameters and buffers (on their device), the train
-        step and the optimizer count. Returns `state`."""
+        step, the optimizer count and its momentum trace. Returns
+        `state`."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self._dir}")
         step_dir = os.path.join(self._dir, str(step))
         saved = _load(step_dir)
-        _check_decode(saved, self._config, step_dir)
+        check_decode(saved["decode"], self._config, step_dir)
+        trace = _fitting_trace(saved.get("opt_trace"), state.opt_state,
+                               step_dir)
         state.model.load_state_dict(saved["model"])
         state.step = saved["step"]
-        state.opt_state = OptState(count=saved["opt_count"])
+        state.opt_state = OptState(count=saved["opt_count"], trace=trace)
         return state
+
+
+def _fitting_trace(saved, running: OptState, where: str):
+    """The saved momentum trace copied into the running one's tensors (in
+    place, on their device), or None; raises when the saved optimizer
+    state does not fit the running optimizer's."""
+    if (saved is None) != (running.trace is None):
+        has = "no momentum trace" if saved is None else "a momentum trace"
+        raise ValueError(
+            f"{where} holds {has}, the running optimizer has "
+            f"{'one' if running.trace is not None else 'no momentum'}: its "
+            "optimizer state does not fit")
+    if saved is None:
+        return None
+    if len(saved) != len(running.trace) or any(
+            s.shape != t.shape for s, t in zip(saved, running.trace)):
+        raise ValueError(f"{where}: its momentum trace does not fit the "
+                         "running model's parameters")
+    for s, t in zip(saved, running.trace):
+        t.copy_(s)
+    return running.trace
 
 
 def load_variables(path: str, config) -> dict[str, torch.Tensor]:
@@ -190,5 +206,5 @@ def load_variables(path: str, config) -> dict[str, torch.Tensor]:
             raise FileNotFoundError(f"no checkpoint found under {path}")
         p = os.path.join(p, str(steps[-1]))
     saved = _load(p)
-    _check_decode(saved, config, p)
+    check_decode(saved["decode"], config, p)
     return saved["model"]

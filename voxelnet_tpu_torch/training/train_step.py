@@ -5,9 +5,11 @@ One train step does, on one device: voxelize (sort + run analysis, the
 run-copy table kernel, finalize), the VFE on the table in train mode with
 mask-aware flax BatchNorm, the dense grid (kernel forward, row-gather
 backward), the Conv3D middle and RPN in train mode, target assignment on
-the device, the RPN loss, backward, clip by global norm and an SGD step.
-It returns the JAX step's metrics. The model's parameters and BN running
-stats are updated in place (the JAX step returns new arrays).
+the device, the RPN loss, backward, and the optimizer's update
+(training/optim.py: clip by global norm, SGD with or without momentum, as
+the optax transform the JAX step takes). It returns the JAX step's
+metrics. The model's parameters and BN running stats are updated in place
+(the JAX step returns new arrays).
 
 Several processes (parallel/distributed.py) each run the step on their
 own rows of the global batch, with the JAX sharded step's semantics: BN
@@ -38,7 +40,8 @@ from voxelnet_tpu_torch.ops.voxelize import (VoxelGridSpec,
                                              dequantize_points_i16,
                                              voxelize_table)
 from voxelnet_tpu_torch.parallel import distributed
-from voxelnet_tpu_torch.training.optim import ClippedSGD, OptState
+from voxelnet_tpu_torch.training.optim import (ClippedSGD, OptState,
+                                               make_optimizer)
 
 
 TRAIN_STAGES = ("voxelize", "targets", "forward", "loss", "backward",
@@ -64,12 +67,16 @@ def _device(device) -> torch.device:
 
 
 def create_train_state(config: VoxelNetConfig, model: VoxelNet | None = None,
-                       seed: int = 0, device="cuda") -> TrainState:
+                       seed: int = 0, device="cuda", *,
+                       optimizer: ClippedSGD | None = None) -> TrainState:
     """A state at step 0: `model` (or a random init from `seed`, see
-    models/init.py) moved to `device`, and a fresh optimizer state."""
+    models/init.py) moved to `device`, and the fresh state of `optimizer`
+    (default make_optimizer's: no momentum trace)."""
     model = build_model(config, seed=seed) if model is None else model
-    return TrainState(step=0, model=model.to(_device(device)),
-                      opt_state=OptState(count=0))
+    model = model.to(_device(device))
+    optimizer = optimizer or make_optimizer(config, 1)
+    return TrainState(step=0, model=model,
+                      opt_state=optimizer.init(list(model.parameters())))
 
 
 class _Inputs:
@@ -142,9 +149,13 @@ def _global_metrics(frames: losses.RPNLoss, names: tuple[str, ...],
 
 
 def make_train_step(config: VoxelNetConfig, device="cuda",
-                    steps_per_epoch: int = 1):
-    """-> fn(state, batch, marks=None) -> (state, metrics): one SGD step
-    on `device` (the card unless the caller asks for "cpu"). Metrics are
+                    steps_per_epoch: int = 1, *,
+                    optimizer: ClippedSGD | None = None):
+    """-> fn(state, batch, marks=None) -> (state, metrics): one step of
+    `optimizer` (default make_optimizer(config, steps_per_epoch); the
+    state's opt_state must come from the same optimizer, see
+    create_train_state) on `device` (the card unless the caller asks for
+    "cpu"). Metrics are
     0-d tensors over the global batch: loss, cls_loss, reg_loss,
     cls_pos_loss, cls_neg_loss, grad_norm (of the global gradient, before
     the clip), and voxels_clipped (frames whose occupied voxels exceed
@@ -154,7 +165,7 @@ def make_train_step(config: VoxelNetConfig, device="cuda",
     resolve_plan(config, train=True)
     device = _device(device)
     inputs = _Inputs(config, device)
-    optimizer = ClippedSGD(config, steps_per_epoch)
+    optimizer = optimizer or make_optimizer(config, steps_per_epoch)
 
     def step(state: TrainState, batch,
              marks: list | None = None) -> tuple[TrainState, dict]:

@@ -27,9 +27,13 @@ the staging thread stays: it only copies to the device and issues no
 collective, while the main thread issues every collective in the same
 order on every process.
 
-Not in the port yet, each refused: `train.host_voxelize` (the dataset) and
-`num_vis_dump` (image dumps need `utils/viz.py` and cv2). TensorBoard
-image summaries are not written.
+With `train.host_voxelize` the pipeline workers build each frame's voxel
+table on the host (data/dataset.py), and the staging thread uploads it
+with the rest of the batch; the step then skips its own voxelization.
+
+Not in the port yet, refused: `num_vis_dump` (image dumps need
+`utils/viz.py` and cv2), and `compat.raster_collision` where cv2 does not
+import. TensorBoard image summaries are not written.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import numpy as np
 import torch
 
 from voxelnet_tpu_torch.config import VoxelNetConfig, resolve_plan
+from voxelnet_tpu_torch.data.augment import check_raster_collision
 from voxelnet_tpu_torch.data.dataset import KITTIDataset, make_batch_iterator
 from voxelnet_tpu_torch.data.pipeline import LazyBatchIterator
 from voxelnet_tpu_torch.models.voxelnet import Detections
@@ -216,6 +221,8 @@ class Trainer:
                  exp_base: str = "exps", resume_from: str | None = None,
                  exp_dir: str | None = None, device="cuda"):
         plan = resolve_plan(config, train=True)
+        if config.train.augment:
+            check_raster_collision(config)
         self.config = config
         self.device = _device(device)
         self._is_main = plan.rank == 0
@@ -245,7 +252,8 @@ class Trainer:
 
         self.state = create_train_state(config, seed=config.train.seed,
                                         device=self.device)
-        distributed.broadcast_state_(self.state.model)
+        distributed.broadcast_state_(self.state.model,
+                                     self.state.opt_state)
         self.train_step = make_train_step(config, self.device,
                                           self.steps_per_epoch)
         self.eval_step = make_eval_step(config, self.device)
@@ -277,7 +285,8 @@ class Trainer:
         if resume_from:
             mgr = ckpt_lib.CheckpointManager(resume_from, config=config)
             mgr.restore(self.state)
-            distributed.broadcast_state_(self.state.model)
+            distributed.broadcast_state_(self.state.model,
+                                         self.state.opt_state)
             self.start_epoch = self.state.step // self.steps_per_epoch
             # keep the best val loss of the run before the resume
             best = mgr.best_metric("val_loss")
