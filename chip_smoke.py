@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's Car inference path, train step and trainer on
-one NVIDIA GPU.
+"""Drive the PyTorch port's Car inference path, train step, trainer, data
+parallelism, learning run, viz and data tools on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -71,7 +71,23 @@ Phases, each fatal on failure:
      train.host_voxelize on phase 6's tree: metrics finite, run_copy not
      launched; (c) compat.bn_over_padding inference, Car B=2: run_copy and
      dense_build launched, vfe_fused not, and the tiny f32 grid on the card
-     against the CPU.
+     against the CPU;
+  9. the slice of the viz, the data tools and the reference-named API:
+     (a) reference_api at full Car width: pcl_to_voxels on a vendored
+     frame equal to voxelize_np, RPN3D + make_inference_fn on the 3 frames
+     at score_thres 0.0 (detections; vfe_fused and dense_build launched),
+     and generate_targets (masks
+     exact, targets within 1e-5), deltas_to_boxes_3d (1e-4 m), nms (100
+     detections equal by score and box) and smooth_L1_loss (1e-6) on the
+     card against their CPU run; (b) one Trainer epoch, Car B=2, on phase
+     6's tree with 375x1242 camera PNGs (written by utils/image_io.py) and
+     KITTI calib files added, num_vis_dump=2, train.augment with
+     compat.raster_collision: the two triplets exist and decode, metrics
+     finite, run_copy and dense_build launched, cv2 never imported; the
+     host ms a frame of the augmentation with the raster check and with
+     the exact IoU; (c) data.raw_to_kitti on a synthetic raw drive, then
+     cli.train for one epoch on its output: finite metrics, a checkpoint,
+     a label dump of every val frame, run_copy and dense_build launched.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing it when
 torch sees no CUDA device or any check fails.
@@ -100,6 +116,7 @@ from voxelnet_tpu_torch.cli import eval as eval_cli
 from voxelnet_tpu_torch.cli import predict
 from voxelnet_tpu_torch.cli import train as train_cli
 from voxelnet_tpu_torch.config import get_config
+from voxelnet_tpu_torch.data import augment as augment_lib
 from voxelnet_tpu_torch.data.sample import sample_frames
 from voxelnet_tpu_torch.kernels import _build, dense_build, run_copy, vfe_fused
 from voxelnet_tpu_torch.models.init import randomize_bn_
@@ -114,7 +131,7 @@ from voxelnet_tpu_torch.training.train_step import (TRAIN_STAGES,
                                                     make_train_step)
 from voxelnet_tpu_torch.tools import synthetic_smoke
 from voxelnet_tpu_torch.training.trainer import Trainer
-from voxelnet_tpu_torch.utils import kitti
+from voxelnet_tpu_torch.utils import image_io, kitti
 
 SEED = 0
 TINY = {"object": {"x_max": 12.8, "y_min": -6.4, "y_max": 6.4},
@@ -1279,6 +1296,303 @@ def phase_ghost_inference(frames, device) -> dict:
     return launches
 
 
+# ---- phase 9: reference API, viz trainer with the raster check, raw drive
+
+# phase 9: (b) the augmentation timing's draws a frame; (c) the raw drive's
+# frames and points a frame
+AUG_DRAWS = 20
+RAW_FRAMES = 8
+RAW_POINTS = 16384
+KITTI_CALIB = """P0: 700 0 600 0 0 700 180 0 0 0 1 0
+P1: 700 0 600 0 0 700 180 0 0 0 1 0
+P2: 700 0 600 0 0 700 180 0 0 0 1 0
+P3: 700 0 600 0 0 700 180 0 0 0 1 0
+R0_rect: 1 0 0 0 1 0 0 0 1
+Tr_velo_to_cam: 0 -1 0 0 0 0 -1 0 1 0 0 0
+Tr_imu_to_velo: 1 0 0 0 0 1 0 0 0 0 1 0
+"""
+
+
+def by_score(boxes: np.ndarray, scores: np.ndarray):
+    """Detections in score order (ties by x): top-k ties have no order on
+    the card."""
+    order = np.lexsort((boxes[:, 0], -scores))
+    return boxes[order], scores[order]
+
+
+def phase_reference_api(frames, device) -> dict:
+    """(a) reference_api at full Car width on the card: pcl_to_voxels
+    against voxelize_np, RPN3D + make_inference_fn on the vendored frames,
+    and generate_targets, nms, deltas_to_boxes_3d and smooth_L1_loss on
+    the card against their CPU run -> the inference's launches."""
+    from voxelnet_tpu_torch import reference_api as ref
+
+    print("[9a] reference_api on the card: Car, bf16, grid 10x400x352, "
+          "65536 points, 16384 voxels")
+    # every score kept: random weights score no box above the preset's 0.96
+    config = get_config("Car", rpn={"score_thres": 0.0})
+    car = ref.get_cfg_defaults("Car")
+    spec = VoxelGridSpec.from_object_config(car.object)
+    vox = ref.pcl_to_voxels(frames[0], "Car",
+                            rng=np.random.default_rng(SEED))
+    want = voxelize_np(frames[0], spec, shuffle=True,
+                       rng=np.random.default_rng(SEED))
+    for key, w in (("feature_buffer", want.features),
+                   ("coordinate_buffer", want.coords),
+                   ("number_buffer", want.counts)):
+        check(np.array_equal(vox[key], w),
+              f"pcl_to_voxels {key} differs from voxelize_np")
+    model = ref.build_model(config, seed=SEED, device=device)
+    randomize_bn_(model, torch.Generator().manual_seed(SEED + 1))
+    check(isinstance(model, ref.RPN3D), "build_model did not give an RPN3D")
+    reset_launches()
+    det = predict.predict(ref.make_inference_fn(config, device), model,
+                          frames, config, np.random.default_rng(SEED))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    counts = check_detections(det, config, len(frames))
+    check(launches["vfe_fused"] > 0 and launches["dense_build"] > 0,
+          f"RPN3D inference launches {launches}")
+    check(sum(counts) > 0, "RPN3D gave no detections at score_thres 0.0")
+    print(f"  pcl_to_voxels == voxelize_np ({len(vox['number_buffer'])} "
+          f"voxels); RPN3D detections {counts}; launches {launches}")
+
+    rng = np.random.default_rng(SEED + 9)
+    anchors = ref.generate_anchors("Car")
+    gt, mask = synthetic_gt(rng, car, 2)
+    labels = [kitti.boxes_to_label_lines(g[m], ["Car"] * int(m.sum()),
+                                         coordinate="lidar")
+              for g, m in zip(gt, mask)]
+    shape = (car.object.feature_height, car.object.feature_width)
+    tg = ref.generate_targets(labels, shape, anchors, device=device)
+    tc = ref.generate_targets(labels, shape, anchors, device="cpu")
+    check(np.array_equal(tg[0], tc[0]) and np.array_equal(tg[1], tc[1]),
+          "generate_targets: the masks differ between the card and the CPU")
+    t_err = float(np.abs(tg[2] - tc[2]).max())
+    check(t_err <= 1e-5 and tg[0].sum() >= 10,
+          f"generate_targets: targets {t_err} apart, {tg[0].sum()} pos")
+    deltas = rng.normal(0, 0.3, (2,) + shape + (14,)).astype(np.float32)
+    bg = ref.deltas_to_boxes_3d(deltas, anchors, device=device)
+    bc = ref.deltas_to_boxes_3d(deltas, anchors, device="cpu")
+    b_err = float(np.abs(bg - bc).max())
+    check(b_err <= 1e-4, f"deltas_to_boxes_3d: {b_err} apart")
+    scores = rng.uniform(0, 1, bc.shape[1]).astype(np.float32)
+    kg = by_score(*ref.nms(bc[0], scores, top_k=100, device=device))
+    kc = by_score(*ref.nms(bc[0], scores, top_k=100, device="cpu"))
+    check(len(kg[0]) == len(kc[0]) == 100
+          and np.array_equal(kg[1], kc[1])
+          and np.abs(kg[0] - kc[0]).max() <= 1e-5,
+          "nms: the card's detections differ from the CPU's")
+    lg = ref.smooth_L1_loss(deltas, deltas[::-1], device=device)
+    lc = ref.smooth_L1_loss(deltas, deltas[::-1], device="cpu")
+    l_err = float(np.abs(lg - lc).max())
+    check(l_err <= 1e-6, f"smooth_L1_loss: {l_err} apart")
+    print(f"  card vs CPU: generate_targets masks equal, targets {t_err} "
+          f"apart ({int(tg[0].sum())} positives); deltas_to_boxes_3d "
+          f"{b_err}; nms 100 of {len(scores)} equal by score and box; "
+          f"smooth_L1_loss {l_err}")
+    return launches
+
+
+def time_augmentation(data: str, config) -> dict:
+    """Host ms a frame of augment_pointcloud over the split's frames,
+    AUG_DRAWS draws each, with the raster collision check and with the
+    exact IoU (the same Generators), and ms a box-pair check of each."""
+    split = os.path.join(data, "training")
+    tags = sorted(f[:-4] for f in os.listdir(os.path.join(split,
+                                                           "velodyne")))
+    clouds = [kitti.read_point_cloud(os.path.join(split, "velodyne",
+                                                  t + ".bin")) for t in tags]
+    boxes = []
+    for t in tags:
+        with open(os.path.join(split, "label_2", t + ".txt")) as f:
+            boxes.append(kitti.parse_label_lines(f.readlines(), "Car",
+                                                 "camera"))
+    out = {}
+    for name, iou in (("raster", lambda a, b: augment_lib.raster_iou_2d(
+            a, b, config.object)), ("exact", augment_lib.rotated_iou_2d)):
+        pairs = [0, 0.0]
+
+        def counted(a, b, _iou=iou, _pairs=pairs):
+            t0 = time.perf_counter()
+            v = _iou(a, b)
+            _pairs[0] += 1
+            _pairs[1] += time.perf_counter() - t0
+            return v
+
+        t0 = time.perf_counter()
+        per_box = 0
+        for d in range(AUG_DRAWS):
+            for i, (pts, gt) in enumerate(zip(clouds, boxes)):
+                rng = np.random.default_rng([SEED, d, i])
+                _, _, tag = augment_lib.augment_pointcloud(pts, gt, rng,
+                                                           counted)
+                per_box += tag.startswith("aug_1_")
+        n = AUG_DRAWS * len(clouds)
+        out[name] = {"ms_per_frame": (time.perf_counter() - t0) / n * 1e3,
+                     "pair_checks": pairs[0],
+                     "ms_per_pair": pairs[1] / max(pairs[0], 1) * 1e3,
+                     "per_box_frames": per_box, "frames": n}
+    return out
+
+
+def phase_vis_trainer(frames, device, tmp, card) -> dict:
+    """(b) one Trainer epoch at full Car width, B=2, on phase 6's tree
+    with camera images and calib files added: num_vis_dump=2,
+    train.augment with compat.raster_collision -> its launches."""
+    print("[9b] viz trainer: one epoch, Car, bf16, B=2, num_vis_dump=2, "
+          "augment + compat.raster_collision, images and calib added")
+    data = os.path.join(tmp, "kitti")
+    calib = os.path.join(data, "calib")
+    os.makedirs(calib, exist_ok=True)
+    rng = np.random.default_rng(SEED)
+    yy, xx = np.mgrid[0:375, 0:1242]
+    os.makedirs(os.path.join(data, "validation", "image_2"), exist_ok=True)
+    for split in TRAINER_FILES:
+        for tag in sorted(f[:-4] for f in os.listdir(
+                os.path.join(data, split, "velodyne"))):
+            with open(os.path.join(calib, tag + ".txt"), "w") as f:
+                f.write(KITTI_CALIB)
+            if split == "validation":
+                img = np.stack([xx // 5, yy // 2, (xx + yy) // 7], -1) % 256
+                img = (img + rng.integers(0, 16, img.shape)).astype(np.uint8)
+                image_io.write_png_rgb(os.path.join(data, split, "image_2",
+                                                    tag + ".png"), img)
+    config = get_config("Car", train={"augment": True, "num_epochs": 1},
+                        compat={"raster_collision": True},
+                        data={"calib_dir": calib})
+    aug = time_augmentation(data, config)
+    for name, a in aug.items():
+        print(f"  augmentation, {name} collision check: {a['ms_per_frame']}"
+              f" ms a frame (host, one thread; {a['per_box_frames']} of "
+              f"{a['frames']} draws in the per-box branch, "
+              f"{a['pair_checks']} box-pair checks at {a['ms_per_pair']} ms"
+              f" each) [{os.cpu_count()} host cores]")
+    exp = os.path.join(tmp, "exp_vis")
+    reset_launches()
+    out = io.StringIO()
+    with Trainer(config, os.path.join(data, "training"),
+                 os.path.join(data, "validation"), exp_dir=exp,
+                 device=device) as tr, contextlib.redirect_stdout(out):
+        tr.train(print_interval=1, summary_interval=1, val_interval=2,
+                 num_vis_dump=2)
+        epoch_s = tr.timings["epoch_s"]
+        dump_s = tr.timings["val_dump_s"]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    logged = [line for line in out.getvalue().splitlines()
+              if line.startswith(("Train ", "Epoch "))]
+    metrics = [float(v) for line in logged for v in re.findall(
+        r"(?:loss|reg|cls|avg_val_loss) (\S+)", line)]
+    print("\n".join(f"    {line}" for line in logged))
+    want_steps = TRAINER_FILES["training"] // config.train.batch_size
+    check(len(metrics) == 3 * want_steps + 1
+          and all(math.isfinite(v) for v in metrics),
+          f"viz trainer metrics missing or not finite: {metrics}")
+    check(launches["run_copy"] > 0 and launches["dense_build"] > 0,
+          f"viz trainer launches {launches}")
+    vis = os.path.join(exp, "vis", "1")
+    names = sorted(os.listdir(vis))
+    val_tags = sorted(f[:-4] for f in os.listdir(
+        os.path.join(data, "validation", "velodyne")))[:2]
+    want = sorted(f"{t}_{k}.png" for t in val_tags
+                  for k in ("front", "bv", "heatmap"))
+    check(names == want, f"vis triplets {names}, want {want}")
+    obj = config.object
+    shapes = {n: image_io.read_png_bgr(os.path.join(vis, n)).shape
+              for n in names}
+    check(shapes[f"{val_tags[0]}_front.png"] == (375, 1242, 3)
+          and shapes[f"{val_tags[0]}_bv.png"] == (obj.height * 2,
+                                                  obj.width * 2, 3)
+          and shapes[f"{val_tags[0]}_heatmap.png"] == (
+              obj.feature_height * 2, obj.feature_width * 2, 3),
+          f"vis image shapes {shapes}")
+    check("cv2" not in sys.modules, "cv2 was imported")
+    print(f"  epoch {epoch_s[0]} s, val dump with 2 triplets {dump_s[0]} s;"
+          f" triplets decode through image_io: {shapes}; cv2 not imported;"
+          f" launches {launches} [{card}]")
+    return launches
+
+
+def write_raw_drive(root: str, rng: np.random.Generator) -> str:
+    """A synthetic KITTI raw drive as tests/test_raw_to_kitti.py builds
+    one: RAW_FRAMES velodyne frames of RAW_POINTS uniform points, two Car
+    tracklets, the drive's calib pair -> its date dir."""
+    date = os.path.join(root, "2011_09_26")
+    sync = os.path.join(date, "2011_09_26_drive_0001_sync")
+    velo = os.path.join(sync, "velodyne_points", "data")
+    os.makedirs(velo)
+    for i in range(RAW_FRAMES):
+        rng.uniform([0, -20, -2, 0], [60, 20, 1, 1], (RAW_POINTS, 4)).astype(
+            np.float32).tofile(os.path.join(velo, f"{i:010d}.bin"))
+    items = []
+    for (h, w, l), x0, y0, rz in (((1.5, 1.6, 3.9), 18.0, 2.0, 0.3),
+                                  ((1.4, 1.7, 4.2), 30.0, -4.0, -0.8)):
+        poses = "".join(
+            f"<item><tx>{x0 + 0.5 * i}</tx><ty>{y0}</ty><tz>-1.6</tz>"
+            f"<rx>0</rx><ry>0</ry><rz>{rz}</rz><state>2</state>"
+            f"<occlusion>0</occlusion><occlusion_kf>0</occlusion_kf>"
+            f"<truncation>0</truncation></item>" for i in range(RAW_FRAMES))
+        items.append(
+            f"<item><objectType>Car</objectType><h>{h}</h><w>{w}</w>"
+            f"<l>{l}</l><first_frame>0</first_frame><poses><count>"
+            f"{RAW_FRAMES}</count><item_version>2</item_version>{poses}"
+            "</poses><finished>1</finished></item>")
+    with open(os.path.join(sync, "tracklet_labels.xml"), "w") as f:
+        f.write('<?xml version="1.0"?><boost_serialization><tracklets '
+                f'class_id="0"><count>{len(items)}</count><item_version>1'
+                "</item_version>" + "".join(items)
+                + "</tracklets></boost_serialization>")
+    p2 = [700.0, 0, 600, 0, 0, 700, 180, 0, 0, 0, 1, 0]
+    with open(os.path.join(date, "calib_cam_to_cam.txt"), "w") as f:
+        f.write("P_rect_02: " + " ".join(map(str, p2)) + "\n"
+                "R_rect_00: 1 0 0 0 1 0 0 0 1\n")
+    with open(os.path.join(date, "calib_velo_to_cam.txt"), "w") as f:
+        f.write("R: 0 -1 0 0 0 -1 1 0 0\nT: 0.01 -0.05 -0.29\n")
+    return date
+
+
+def phase_raw_to_kitti(device, tmp, card) -> dict:
+    """(c) data.raw_to_kitti on a synthetic raw drive, then cli.train for
+    one epoch on its output (Car, bf16, B=2) -> its launches."""
+    from voxelnet_tpu_torch.data import raw_to_kitti
+
+    print(f"[9c] raw_to_kitti on a synthetic raw drive ({RAW_FRAMES} "
+          f"frames), then cli.train one epoch on its output")
+    raw = write_raw_drive(os.path.join(tmp, "raw"),
+                          np.random.default_rng(SEED))
+    out = os.path.join(tmp, "kitti_from_raw")
+    printed = run_cli(raw_to_kitti.main, ["--raw-root", raw, "--out-dir",
+                                          out, "--copy", "--val-frac",
+                                          "0.25"])
+    n_val = math.ceil(RAW_FRAMES * 0.25)
+    check(f"'training': {RAW_FRAMES - n_val}, 'validation': {n_val}"
+          in printed, f"raw_to_kitti printed {printed!r}")
+    cfg = os.path.join(tmp, "raw_epochs1.yaml")
+    with open(cfg, "w") as f:
+        f.write("train: {num_epochs: 1}  # Car preset else\n")
+    exp = os.path.join(tmp, "exp_raw")
+    reset_launches()
+    logged = run_cli(train_cli.main, [
+        "--data-dir", out, "--exp-dir", exp, "--cfg", cfg, "--device",
+        device.type, "--print-interval", "1"])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    metrics = [float(v) for v in re.findall(
+        r"(?:loss|reg|cls|avg_val_loss) (\S+)", logged)]
+    check(metrics and all(math.isfinite(v) for v in metrics),
+          f"cli.train on raw_to_kitti's output: metrics {metrics}")
+    val = sorted(os.listdir(os.path.join(out, "validation", "label_2")))
+    dumped = sorted(os.listdir(os.path.join(exp, "preds", "1", "data")))
+    check(dumped == val and os.listdir(os.path.join(exp, "checkpoints"))
+          == ["0"], f"cli.train on raw_to_kitti's output: dumps {dumped}")
+    check(launches["run_copy"] > 0 and launches["dense_build"] > 0,
+          f"raw_to_kitti trainer launches {launches}")
+    print(f"  {printed.strip()}; cli.train: {len(metrics)} metrics, all "
+          f"finite; {len(dumped)} val dumps; launches {launches} [{card}]")
+    return launches
+
+
 def kernel_entry(name, times, errs, bounds, launches, by_path) -> dict:
     """One kernel's object of the {"kernels": [...]} line: event and
     profiler device times of the kernel, its plain version and its one
@@ -1363,7 +1677,12 @@ def main(argv=None):
                                           card, step_fps)
         learn_train, learn_eval = phase_learning_run(device, tmp, card)
         host_vox = phase_host_voxelizer(frames, device, tmp, card)
-    ghost = phase_ghost_inference(frames, device)
+        ghost = phase_ghost_inference(frames, device)
+        t9 = time.perf_counter()
+        ref_api = phase_reference_api(frames, device)
+        vis_trainer = phase_vis_trainer(frames, device, tmp, card)
+        raw_train = phase_raw_to_kitti(device, tmp, card)
+        print(f"[9] phase 9 took {time.perf_counter() - t9} s")
 
     # each kernel's count on the path of the slice that brought it: the
     # fused VFE runs only for inference, the others on the train step
@@ -1377,7 +1696,10 @@ def main(argv=None):
                "learning_run_train": learn_train,
                "learning_run_eval": learn_eval,
                "host_voxelize_trainer": host_vox,
-               "bn_over_padding_inference": ghost}
+               "bn_over_padding_inference": ghost,
+               "reference_api_inference": ref_api,
+               "vis_trainer": vis_trainer,
+               "raw_to_kitti_train": raw_train}
     entries = [kernel_entry(name, times, errs, bounds, launches, by_path)
                for name in KERNELS]
     entries[KERNELS.index("vfe_fused")].update(vfe_info)

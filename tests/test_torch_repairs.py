@@ -1,17 +1,13 @@
-"""Three repairs of the port, each held on the CPU: the .npz weight bridge
-keeps the decode knobs and refuses a yaw encoding that differs from the
-running config's (in `convert.load_npz` and `cli.predict --weights`);
-`compat.raster_collision` without cv2 is refused when the dataset or the
-trainer is built; `distributed.initialize` without a device and without a
-card raises instead of picking the CPU."""
-
-import os
-import sys
+"""Repairs of the port, each held on the CPU: the .npz weight bridge keeps
+the decode knobs and refuses a yaw encoding that differs from the running
+config's (in `convert.load_npz` and `cli.predict --weights`);
+`distributed.initialize` without a device and without a card raises
+instead of picking the CPU. (`compat.raster_collision` without cv2, once
+refused here, runs on the numpy rasterizer: tests/test_torch_viz.py.)"""
 
 import pytest
 import torch
-from torch_port_helpers import (LABEL_LINES, TINY, configs, jax_variables,
-                                merged, write_mini_kitti)
+from torch_port_helpers import TINY, configs, jax_variables, merged
 
 from voxelnet_tpu_torch import convert
 from voxelnet_tpu_torch.config import get_config
@@ -59,26 +55,6 @@ def test_npz_without_knobs_warns(tmp_path, variables):
     assert convert.load_npz(path)["meta"] is None
     with pytest.warns(UserWarning, match="no decode knobs.*decode wrong"):
         convert.load_npz(path, get_config("Car", **TINY))
-
-
-def test_raster_collision_without_cv2_is_refused_up_front(tmp_path,
-                                                          monkeypatch):
-    from voxelnet_tpu_torch.data.dataset import KITTIDataset
-    from voxelnet_tpu_torch.training.trainer import Trainer
-
-    data = write_mini_kitti(str(tmp_path / "kitti"), labels=LABEL_LINES)
-    cfg = get_config("Car", **merged(TINY, train={"augment": True},
-                                     compat={"raster_collision": True}))
-    monkeypatch.setitem(sys.modules, "cv2", None)     # import cv2 fails
-    with pytest.raises(ValueError, match="item 12"):
-        KITTIDataset(data + "/training", cfg, augment=True)
-    exp = str(tmp_path / "exp")
-    with pytest.raises(ValueError, match="raster_collision"):
-        Trainer(cfg, data + "/training", data + "/validation", exp_dir=exp,
-                device="cpu")
-    assert not os.path.exists(exp)     # refused before the exp dir exists
-    # without augmentation the collision check never runs
-    KITTIDataset(data + "/validation", cfg, augment=False)
 
 
 def test_initialize_without_a_card_needs_an_explicit_device(tmp_path,

@@ -105,8 +105,8 @@ def test_stage_points_matches_jax_pipeline():
 
 def test_port_imports_no_jax():
     """The package, its CLIs, its train step, trainer, checkpoints,
-    evaluator, dataset and data parallelism, and the chip smoke script
-    load without JAX, flax, optax or orbax and without any module of the
+    evaluator, dataset, data parallelism, viz, data tools, reference API
+    and Orbax converter, and the chip smoke script load without JAX, flax, optax or orbax and without any module of the
     JAX package, under its name or loaded from a file under voxelnet_tpu/,
     with yaml and cv2 unimportable (the card's machine has neither).
     conftest.py has imported JAX here, so check in a subprocess."""
@@ -131,6 +131,13 @@ def test_port_imports_no_jax():
             "import voxelnet_tpu_torch.native\n"
             "import voxelnet_tpu_torch.tools.synthetic_smoke\n"
             "import voxelnet_tpu_torch.tools.dump_report\n"
+            "import voxelnet_tpu_torch.tools.orbax_to_npz\n"
+            "import voxelnet_tpu_torch.reference_api\n"
+            "import voxelnet_tpu_torch.utils.viz\n"
+            "import voxelnet_tpu_torch.utils.raw_drive\n"
+            "import voxelnet_tpu_torch.data.raw_to_kitti\n"
+            "import voxelnet_tpu_torch.data.preprocess\n"
+            "import voxelnet_tpu_torch.data.split\n"
             "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
             "from voxelnet_tpu_torch.config import get_config\n"
             "get_config('Car').dump_yaml()\n"

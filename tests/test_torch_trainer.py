@@ -312,7 +312,6 @@ def test_stager_close_stops_an_endless_source():
      {}, "host voxelizer"),
     ({"system": {"num_data_shards": 2}}, {}, "no torch.distributed process"),
     ({"train": {"remat": "some"}}, {}, "remat"),
-    ({}, {"num_vis_dump": 2}, "viz"),
 ])
 def test_trainer_refuses_what_the_port_lacks(tmp_path, overrides, kw, match):
     data = write_mini_kitti(str(tmp_path / "kitti"),

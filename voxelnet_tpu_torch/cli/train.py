@@ -19,7 +19,8 @@ cuda:LOCAL_RANK; --dist-backend gloo with --device cuda:0 puts every rank
 on one card) and destroys it at exit.
 
 --cfg reads the YAML subset of `voxelnet_tpu_torch/utils/yaml_subset.py`.
---num-vis-dump above 0 is not in the port yet.
+--num-vis-dump N writes the front/BEV/heatmap images of N val frames an
+epoch as PNGs under <exp>/vis/<epoch> (no cv2 needed).
 """
 
 from __future__ import annotations
@@ -55,8 +56,9 @@ def main(argv=None):
     p.add_argument("--profile-steps", type=str, default=None,
                    help="START:STOP global-step window traced with "
                         "torch.profiler into the exp logs dir")
-    p.add_argument("--num-vis-dump", type=int, default=0, choices=(0,),
-                   help="per-epoch image dumps: only 0 in the port")
+    p.add_argument("--num-vis-dump", type=int, default=0,
+                   help="val frames an epoch whose front/BEV/heatmap images "
+                        "are written as PNGs under <exp>/vis/<epoch>")
     p.add_argument("--device", type=_device_arg, default="cuda",
                    help="cuda (cuda:LOCAL_RANK when launched in several "
                         "processes), cuda:N or cpu")

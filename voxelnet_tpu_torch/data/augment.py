@@ -15,14 +15,15 @@ is an explicit np.random.Generator instead of a re-seeded global
 (dataset.py:123 — reference reseeds per sample). The
 `compat.raster_collision` flag routes the collision check through
 `raster_iou_2d`, which reproduces the reference's raster quantization
-bit-for-bit (int-truncated grid-pixel corners, image-sized buffer).
+bit-for-bit (int-truncated grid-pixel corners, image-sized buffer) on the
+port's numpy rasterizer (utils/raster.py), so it needs no cv2.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from voxelnet_tpu_torch.utils import geometry
+from voxelnet_tpu_torch.utils import geometry, raster
 
 
 def _poly_clip(subject: list, a: np.ndarray, b: np.ndarray) -> list:
@@ -63,48 +64,27 @@ def rotated_iou_2d(box1: np.ndarray, box2: np.ndarray) -> float:
     return inter / union if union > 0 else 0.0
 
 
-RASTER_COLLISION_NEEDS_CV2 = (
-    "compat.raster_collision rasterizes the augmentation's collision check "
-    "with cv2, which does not import here; the numpy rasterizer that would "
-    "replace it comes with the viz module (ROADMAP.md queue 1 item 12). "
-    "Set compat.raster_collision=false (the exact rotated-rectangle IoU)")
-
-
-def check_raster_collision(config) -> None:
-    """Refuse `compat.raster_collision` where cv2 does not import, when a
-    dataset or trainer is built rather than on the first augmented frame
-    of a pipeline worker."""
-    if not config.compat.raster_collision:
-        return
-    try:
-        import cv2  # noqa: F401
-    except ImportError as e:
-        raise ValueError(RASTER_COLLISION_NEEDS_CV2) from e
-
-
 def raster_iou_2d(box1: np.ndarray, box2: np.ndarray, obj_config,
                   image_hw: tuple[int, int] = (375, 1242)) -> float:
-    """Reference-parity BEV IoU via cv2 polygon rasterization.
+    """Reference-parity BEV IoU of the two boxes' rasters.
 
     Reproduces voxelnet/dataset.py:222-240 `calc_iou2d` exactly: corners
     -> BEV grid-index pixels ((p - min) / voxel_size, clipped to the grid
-    extent), int32-TRUNCATED, rasterized with cv2.fillConvexPoly onto an
-    IMAGE-sized (H=375, W=1242) buffer — note the buffer is image-sized
-    while coords are grid-sized, so for the Car grid rows 375..400 fall
-    off the buffer (a reference quirk this mode carries). IoU =
-    shared / (shared + exclusive) pixels; 0.0 when both rasters are
+    extent), int32-TRUNCATED, rasterized as cv2.fillConvexPoly rasterizes
+    them onto an IMAGE-sized (H=375, W=1242) buffer — note the buffer is
+    image-sized while coords are grid-sized, so for the Car grid rows
+    375..400 fall off the buffer (a reference quirk this mode carries).
+    IoU = shared / (shared + exclusive) pixels; 0.0 when both rasters are
     identical-or-empty (the reference's `indiv == 0` early-out).
 
-    Needs cv2 (imported here, so the default path and the module's import
-    do not; `check_raster_collision` refuses the flag up front without
-    it).
+    The rasters come from `utils/raster.py::polygon_pixels`, bit-equal to
+    cv2.fillConvexPoly, as the pixel sets of the two polygons' rows: no
+    buffer of the image's size is allocated.
     """
-    import cv2
-
     h, w = image_hw
     corners = geometry.center_to_corner_box2d(
         np.stack([box1, box2]).astype(np.float32))       # (2, 4, 2)
-    bufs = []
+    pixels = []
     for c in corners:
         a = (c[:, 0] - obj_config.x_min) / obj_config.x_voxel_size
         b = (c[:, 1] - obj_config.y_min) / obj_config.y_voxel_size
@@ -113,11 +93,9 @@ def raster_iou_2d(box1: np.ndarray, box2: np.ndarray, obj_config,
         b = np.clip(b, 0, (obj_config.y_max - obj_config.y_min)
                     / obj_config.y_voxel_size)
         pix = np.stack([a, b], axis=-1).astype(np.int32)
-        buf = np.zeros((h, w, 3))
-        bufs.append(cv2.fillConvexPoly(buf, pix, color=(1, 1, 1))[..., 0])
-    buf1, buf2 = bufs
-    indiv = np.sum(np.absolute(buf1 - buf2))
-    share = np.sum((buf1 + buf2) == 2)
+        pixels.append(raster.polygon_pixels(pix, h, w))
+    share = np.intersect1d(pixels[0], pixels[1], assume_unique=True).size
+    indiv = pixels[0].size + pixels[1].size - 2 * share
     if indiv == 0:
         return 0.0
     return float(share / (indiv + share))

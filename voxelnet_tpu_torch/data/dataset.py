@@ -56,8 +56,6 @@ class KITTIDataset:
     def __init__(self, data_dir: str, config: VoxelNetConfig,
                  augment: bool = False, test: bool = False,
                  host_voxelize: bool = False, seed: int = 0):
-        if augment:
-            augment_lib.check_raster_collision(config)
         self.data_dir = data_dir
         self.config = config
         self.augment = augment

@@ -15,7 +15,7 @@ VFE, convs, targets, loss, optimizer, decode, NMS, label I/O and eval.
 
     python -m voxelnet_tpu_torch.tools.synthetic_smoke [--steps 400]
         [--frames 128] [--class-name Pedestrian] [--dump-labels DIR]
-        [--device cuda] [--init-seed 0]
+        [--device cuda] [--init-seed 0 | --init-weights NPZ]
 
 Each held-out frame is scored as `cli.eval` scores its label files: the
 predictions and the ground truth are emitted as KITTI label lines (lidar
@@ -29,9 +29,13 @@ counts every ground-truth box as moderate instead; its `cli/eval` rows
 
 Beyond the script: `--device` (default cuda) and `--init-seed`, which
 seeds only the port's weight initialisation (the frames stay the
-script's); `--save-checkpoint DIR` writes the port's checkpoint, which
-`cli.predict --checkpoint DIR` reads; `--cfg FILE` merges a YAML override
-file (utils/yaml_subset.py) over the script's overrides, for small runs.
+script's); `--init-weights NPZ` starts from the JAX variables in a
+`convert.save_npz` file instead (the JAX script's own initial state, for a
+like-for-like run), refused when its decode knobs or its shapes do not fit
+the run's config; `--save-checkpoint DIR` writes the port's checkpoint,
+which `cli.predict --checkpoint DIR` reads; `--cfg FILE` merges a YAML
+override file (utils/yaml_subset.py) over the script's overrides, for
+small runs.
 """
 
 from __future__ import annotations
@@ -198,11 +202,34 @@ class TrainResult(NamedTuple):
     seconds: float       # the step loop, device work included
 
 
+def load_init_weights(config, path: str):
+    """The model of a `convert.save_npz` file of JAX variables. Refused
+    when the decode knobs it was saved with are not `config`'s, or when a
+    tensor's name or shape does not fit the model of `config`; a file
+    without knobs loads with `convert.load_npz`'s warning."""
+    from voxelnet_tpu_torch import convert
+    from voxelnet_tpu_torch.models.voxelnet import build_model
+
+    variables = convert.load_npz(path, config)
+    want = json.loads(json.dumps(convert.decode_knobs(config.to_dict())))
+    if variables["meta"] is not None and variables["meta"] != want:
+        diff = sorted(k for k in want if variables["meta"].get(k) != want[k])
+        raise ValueError(f"{path} was saved for another config: its decode "
+                         f"knobs differ from the run's in {diff}")
+    model = build_model(config)
+    try:
+        model.load_state_dict(convert.from_jax_variables(variables))
+    except RuntimeError as e:
+        raise ValueError(f"{path} does not fit the run's model: {e}") from e
+    return model
+
+
 def train(config, frames: Frames, optimizer: ClippedSGD, *, steps: int,
           num_frames: int = 128, batch: int = 4, fresh_frames: bool = False,
-          device="cuda", init_seed: int = 0, log_every: int = 50,
-          echo=print) -> TrainResult:
-    """`steps` train steps from a random init (`init_seed`): over the
+          device="cuda", init_seed: int = 0, init_weights: str | None = None,
+          log_every: int = 50, echo=print) -> TrainResult:
+    """`steps` train steps from a random init (`init_seed`), or from the
+    weights of `init_weights` (a .npz, see load_init_weights): over the
     num_frames // batch batches drawn first and uploaded once, cycled, or
     over a fresh batch every step. Every `log_every` steps the losses are
     read back, logged and echoed."""
@@ -210,7 +237,9 @@ def train(config, frames: Frames, optimizer: ClippedSGD, *, steps: int,
                                                         make_train_step)
 
     device = torch.device(device)
-    state = create_train_state(config, seed=init_seed, device=device,
+    model = (load_init_weights(config, init_weights) if init_weights
+             else None)
+    state = create_train_state(config, model, seed=init_seed, device=device,
                                optimizer=optimizer)
     step = make_train_step(config, device, optimizer=optimizer)
 
@@ -353,8 +382,13 @@ def main(argv=None) -> dict:
                          "through cli.eval")
     ap.add_argument("--device", default="cuda",
                     help="cuda, cuda:N or cpu")
-    ap.add_argument("--init-seed", type=int, default=0,
-                    help="seed of the weight initialisation only")
+    init = ap.add_mutually_exclusive_group()
+    init.add_argument("--init-seed", type=int, default=0,
+                      help="seed of the weight initialisation only")
+    init.add_argument("--init-weights", type=str, default=None,
+                      help="start from the JAX variables of this .npz "
+                           "(convert.save_npz, with the run's decode "
+                           "knobs) instead of a random init")
     ap.add_argument("--cfg", type=str, default=None,
                     help="YAML override file merged over the run's config")
     args = ap.parse_args(argv)
@@ -371,7 +405,7 @@ def main(argv=None) -> dict:
     run = train(cfg, frames, optimizer, steps=args.steps,
                 num_frames=args.frames, batch=args.batch,
                 fresh_frames=args.fresh_frames, device=args.device,
-                init_seed=args.init_seed)
+                init_seed=args.init_seed, init_weights=args.init_weights)
     print(f"trained {args.steps} steps in {run.seconds:.1f}s "
           f"({args.steps / run.seconds:.3f} steps/s)", flush=True)
 

@@ -1,8 +1,9 @@
 """Training loop of the port, as the single-process path of
 `voxelnet_tpu/training/trainer.py`: experiment dir `exps/YYYY-MM-DD-NNN/
-{checkpoints,logs,vis,preds}`, config snapshot, TensorBoard scalars when a
-writer imports, sampled validation, per-epoch validation with KITTI label
-dumps, best tracking by val loss across resume, saturation counters and a
+{checkpoints,logs,vis,preds}`, config snapshot, TensorBoard scalars and
+prediction images when a writer imports, sampled validation, per-epoch
+validation with KITTI label dumps and `num_vis_dump` image triplets, best
+tracking by val loss across resume, saturation counters and a
 `torch.profiler` window.
 
 The train and eval steps run on `device` (the card unless the caller asks
@@ -31,9 +32,13 @@ With `train.host_voxelize` the pipeline workers build each frame's voxel
 table on the host (data/dataset.py), and the staging thread uploads it
 with the rest of the batch; the step then skips its own voxelization.
 
-Not in the port yet, refused: `num_vis_dump` (image dumps need
-`utils/viz.py` and cv2), and `compat.raster_collision` where cv2 does not
-import. TensorBoard image summaries are not written.
+The images (front view with predicted and ground-truth boxes, BEV
+occupancy with boxes, score heatmap) are drawn by `utils/viz.py` on the
+numpy rasterizer and written by `utils/image_io.py`, so no cv2 is needed.
+The triplets are `<tag>_front.png`, `<tag>_bv.png` and `<tag>_heatmap.png`
+(the JAX trainer writes `.jpg` through cv2). Unlike the JAX trainer's,
+the drawing is not best-effort: only a missing (or empty) camera image
+skips the front view, and any other failure raises.
 """
 
 from __future__ import annotations
@@ -49,22 +54,19 @@ import numpy as np
 import torch
 
 from voxelnet_tpu_torch.config import VoxelNetConfig, resolve_plan
-from voxelnet_tpu_torch.data.augment import check_raster_collision
 from voxelnet_tpu_torch.data.dataset import KITTIDataset, make_batch_iterator
 from voxelnet_tpu_torch.data.pipeline import LazyBatchIterator
 from voxelnet_tpu_torch.models.voxelnet import Detections
 from voxelnet_tpu_torch.ops import box_coding, nms
 from voxelnet_tpu_torch.ops.anchors import anchors_flat
-from voxelnet_tpu_torch.ops.voxelize import quantize_points_i16
+from voxelnet_tpu_torch.ops.voxelize import (POINT_I16_SCALES,
+                                             quantize_points_i16)
 from voxelnet_tpu_torch.parallel import distributed
 from voxelnet_tpu_torch.training import checkpoint as ckpt_lib
 from voxelnet_tpu_torch.training.train_step import (_device, create_train_state,
                                                     make_eval_step,
                                                     make_train_step)
-from voxelnet_tpu_torch.utils import kitti
-
-VIZ_MISSING = ("num_vis_dump > 0 needs the viz module (utils/viz.py, cv2), "
-               "which the port does not have yet (ROADMAP.md queue 1 item 12)")
+from voxelnet_tpu_torch.utils import image_io, kitti, viz
 
 
 def make_exp_dir(base: str = "exps") -> str:
@@ -221,8 +223,6 @@ class Trainer:
                  exp_base: str = "exps", resume_from: str | None = None,
                  exp_dir: str | None = None, device="cuda"):
         plan = resolve_plan(config, train=True)
-        if config.train.augment:
-            check_raster_collision(config)
         self.config = config
         self.device = _device(device)
         self._is_main = plan.rank == 0
@@ -383,12 +383,72 @@ class Trainer:
             batch = next(self._val_iter, None)
         return batch
 
-    def _validate(self, val_batch, step: int) -> float:
-        """The val loss of one global val batch (the same on every rank)."""
-        vmet, _, _ = self.eval_step(self.state, self._device_batch(val_batch))
+    def _validate(self, val_batch, step: int, images: bool = False) -> float:
+        """The val loss of one global val batch (the same on every rank);
+        with `images`, the batch's first frame's prediction images go to
+        TensorBoard too."""
+        vmet, probs, deltas = self.eval_step(self.state,
+                                             self._device_batch(val_batch))
         vmet = self._fetch_metrics(vmet)
         self._log("validate", vmet, step)
+        if images:
+            self._log_prediction_images(val_batch, probs, deltas, step)
         return float(vmet["loss"])
+
+    # -- prediction images -------------------------------------------------
+    def _calib(self, tag: str):
+        """(P2, Tr_velo_to_cam, R0_rect) of a frame, or Nones (the default
+        calibration) where data.calib_dir holds no file for it."""
+        path = os.path.join(self.config.data.calib_dir, tag + ".txt")
+        return kitti.load_calib(path) if os.path.exists(path) else (
+            None, None, None)
+
+    def _vis_images(self, batch: dict, b: int, pred_boxes: np.ndarray,
+                    probs: np.ndarray, calib) -> dict:
+        """RGB images of frame b of a host batch: 'front' (the camera
+        image with predicted and ground-truth boxes; absent when the val
+        split's image_2/<tag>.png is missing or empty, a placeholder that
+        cv2.imread reads as None too), 'bv' (BEV occupancy with boxes, 2x)
+        and 'heatmap' (the summed scores, 2x). Any other file that is not
+        an 8-bit PNG raises."""
+        obj = self.config.object
+        tag = batch["tags"][b]
+        gt = np.asarray(batch["gt_boxes"][b])[np.asarray(batch["gt_mask"][b])]
+        points = np.asarray(batch["points"][b])[: int(batch["num_points"][b])]
+        if points.dtype == np.int16:      # the i16q wire format
+            points = points.astype(np.float32) * np.asarray(
+                POINT_I16_SCALES, np.float32)
+        P, Tr, R = calib
+        out = {}
+        img_path = os.path.join(self.val_ds.data_dir, "image_2", tag + ".png")
+        if os.path.exists(img_path) and os.path.getsize(img_path):
+            out["front"] = viz.draw_boxes3d_on_image(
+                image_io.read_png_bgr(img_path), pred_boxes, gt, P2=P,
+                T_VELO_2_CAM=Tr, R_RECT_0=R)
+        bev = viz.lidar_to_bev_image(points, obj, factor=2)
+        out["bv"] = viz.draw_boxes3d_on_bev(bev, pred_boxes, obj,
+                                            gt_boxes3d=gt, factor=2)
+        out["heatmap"] = viz.colorize_heatmap(probs.transpose(2, 0, 1),
+                                              factor=2)
+        return out
+
+    def _log_prediction_images(self, batch: dict, probs, deltas, step: int):
+        """TensorBoard images of the first frame of a sampled val batch:
+        front view with predicted and ground-truth boxes, BEV, score
+        heatmap (reference voxelnet/model.py:396-416, train.py:187-192).
+        Written where the summary writer exists (rank 0)."""
+        if self.summary is None:
+            return
+        det, _ = self.decode_fn(probs[:1], deltas[:1])
+        boxes = det.boxes[0][det.valid[0]].cpu().numpy()
+        images = self._vis_images(batch, 0, boxes, probs[0].float().cpu()
+                                  .numpy(), self._calib(batch["tags"][0]))
+        for key, name in (("front", "front_view_rgb"),
+                          ("bv", "bird_view_lidar"),
+                          ("heatmap", "bird_view_heatmap")):
+            if key in images:
+                self.summary.add_image(f"predict/{name}",
+                                       images[key].transpose(2, 0, 1), step)
 
     def train(self, print_interval: int = 100, summary_interval: int = 100,
               val_interval: int = 100, dump_val_labels: bool = True,
@@ -399,9 +459,9 @@ class Trainer:
         profile_steps: optional (start, stop) global-step window traced by
         torch.profiler (CPU, and CUDA on a card) into <exp_dir>/logs as a
         Chrome trace (`*.pt.trace.json`).
+        num_vis_dump: image triplets of the first val frames written with
+        each epoch's label dump (see dump_val_predictions).
         """
-        if num_vis_dump:
-            raise ValueError(VIZ_MISSING)
         cfg = self.config
         min_loss = self._resume_min_loss
         global_step = self.state.step
@@ -475,8 +535,8 @@ class Trainer:
                             if val_batch is None:
                                 # val set smaller than one val batch
                                 continue
-                            tot_val_loss += self._validate(val_batch,
-                                                           global_step)
+                            tot_val_loss += self._validate(
+                                val_batch, global_step, images=True)
                             tot_val_times += 1
                 finally:
                     staged.close()
@@ -507,7 +567,8 @@ class Trainer:
                 self.timings["checkpoint_s"].append(time.perf_counter() - t0)
 
                 if dump_val_labels:
-                    self.dump_val_predictions(epoch)
+                    self.dump_val_predictions(epoch,
+                                              num_vis_dump=num_vis_dump)
 
                 val_str = f"{avg_val:.4f}" if avg_val is not None else "n/a"
                 if self._is_main:
@@ -533,17 +594,21 @@ class Trainer:
         profiler.start()
         return profiler
 
-    def dump_val_predictions(self, epoch: int,
-                             max_frames: int | None = None) -> None:
+    def dump_val_predictions(self, epoch: int, max_frames: int | None = None,
+                             num_vis_dump: int = 0) -> None:
         """Full validation sweep -> one KITTI label file per frame in
-        <exp_dir>/preds/<epoch + 1>/data, and the count of frames whose
-        candidates exceeded rpn.nms_pre_topk. Several processes each write
+        <exp_dir>/preds/<epoch + 1>/data, the count of frames whose
+        candidates exceeded rpn.nms_pre_topk, and image triplets of the
+        first `num_vis_dump` frames this process dumps in <exp_dir>/vis/
+        <epoch + 1> (see _dump_vis_triplet). Several processes each write
         the frames they loaded; `max_frames` counts global frames, so every
         process stops after the same batch."""
         cfg = self.config
         t0 = time.perf_counter()
         out_dir = os.path.join(self.exp_dir, "preds", str(epoch + 1), "data")
         os.makedirs(out_dir, exist_ok=True)
+        vis_dir = os.path.join(self.exp_dir, "vis", str(epoch + 1))
+        vis_count = 0
         seen = global_seen = 0
         nms_saturated = 0
         for batch in make_batch_iterator(
@@ -562,18 +627,22 @@ class Trainer:
                                                   cfg.val.batch_size)
             nms_saturated += int((n_cand[:num_real]
                                   > cfg.rpn.nms_pre_topk).sum())
+            host_probs = (probs.float().cpu().numpy()
+                          if vis_count < num_vis_dump else None)
             for b, tag in enumerate(batch["tags"][:num_real]):
                 keep = valid[b]
-                calib_path = os.path.join(cfg.data.calib_dir, tag + ".txt")
-                P = Tr = R = None
-                if os.path.exists(calib_path):
-                    P, Tr, R = kitti.load_calib(calib_path)
+                calib = self._calib(tag)
+                P, Tr, R = calib
                 lines = kitti.boxes_to_label_lines(
                     boxes[b][keep], [cfg.object.name] * int(keep.sum()),
                     scores=scores[b][keep], coordinate="lidar",
                     P2=P, T_VELO_2_CAM=Tr, R_RECT_0=R)
                 with open(os.path.join(out_dir, tag + ".txt"), "w") as f:
                     f.writelines(lines)
+                if vis_count < num_vis_dump:
+                    self._dump_vis_triplet(vis_dir, batch, b, boxes[b][keep],
+                                           host_probs[b], calib)
+                    vis_count += 1
                 seen += 1
         self.timings["val_dump_s"].append(time.perf_counter() - t0)
         self.timings["val_dump_frames"].append(seen)
@@ -587,6 +656,19 @@ class Trainer:
         if self.summary is not None:
             self.summary.add_scalar(
                 "saturation/nms_pre_topk_frames", nms_saturated, epoch + 1)
+
+    def _dump_vis_triplet(self, vis_dir: str, batch: dict, b: int,
+                          pred_boxes: np.ndarray, probs: np.ndarray,
+                          calib) -> None:
+        """Write <tag>_front.png (when the camera image exists),
+        <tag>_bv.png and <tag>_heatmap.png, as the reference's per-epoch
+        vis dump (voxelnet/train.py:238-259) writes its JPEGs."""
+        os.makedirs(vis_dir, exist_ok=True)
+        tag = batch["tags"][b]
+        for key, rgb in self._vis_images(batch, b, pred_boxes, probs,
+                                         calib).items():
+            image_io.write_png_rgb(os.path.join(vis_dir, f"{tag}_{key}.png"),
+                                   rgb)
 
 
 def _quantize_points(batch: dict) -> dict:
