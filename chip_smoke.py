@@ -5,7 +5,7 @@ parallelism, learning run, viz and data tools on one NVIDIA GPU.
 
 Phases, each fatal on failure:
   1. the card: `nvidia-smi` name and power limit, torch's device name;
-  2. build the three CUDA sources of voxelnet_tpu_torch/csrc/ with nvcc,
+  2. build the four CUDA sources of voxelnet_tpu_torch/csrc/ with nvcc,
      one process each, started together;
   3. each kernel against its plain torch version at Car shapes (B=2,
      vendored frames): the fused VFE (>= 99.9% of elements bit-equal, the
@@ -87,7 +87,24 @@ Phases, each fatal on failure:
      host ms a frame of the augmentation with the raster check and with
      the exact IoU; (c) data.raw_to_kitti on a synthetic raw drive, then
      cli.train for one epoch on its output: finite metrics, a checkpoint,
-     a label dump of every val frame, run_copy and dense_build launched.
+     a label dump of every val frame, run_copy and dense_build launched;
+ 10. the slice of `data.middle_backend='sparse1'` (block 1 from the voxel
+     table): (a) both sparse-conv kernels against their plain versions at
+     Car B=2, fed by the fused VFE on the vendored frames (bit-equal, and
+     a W window equal to a slice of the full output), their times, plain
+     times (over 5 calls a window) and bounds, with cuDNN's Conv3d of the
+     dense grid (and the dense_build time beside it) as the forward's
+     one-call yardstick, one index_select as the gradient's, and the
+     occupancy map's and the product's times; (b) Car inference with
+     sparse1 through cli.predict and make_inference_fn: detections
+     against phase 4's conv3d run by score and box, vfe_fused and
+     sparse_conv launched and dense_build not, per-stage times and a
+     profiler table at B=1 and B=8, the tiny f32 grid on the card against
+     the CPU; (c) the train step with sparse1 at Car B=8: the loss falls,
+     run_copy and both sparse kernels launched and dense_build not, step
+     time, stage split and peak memory, one tiny f32 step on the card
+     against the CPU; cli.train for one epoch (the Trainer) and two gloo
+     ranks on cuda:0 with sparse1, their launches.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing it when
 torch sees no CUDA device or any check fails.
@@ -118,8 +135,10 @@ from voxelnet_tpu_torch.cli import train as train_cli
 from voxelnet_tpu_torch.config import get_config
 from voxelnet_tpu_torch.data import augment as augment_lib
 from voxelnet_tpu_torch.data.sample import sample_frames
-from voxelnet_tpu_torch.kernels import _build, dense_build, run_copy, vfe_fused
+from voxelnet_tpu_torch.kernels import (_build, dense_build, run_copy,
+                                        sparse_conv, vfe_fused)
 from voxelnet_tpu_torch.models.init import randomize_bn_
+from voxelnet_tpu_torch.models.sparse_conv import weight_matrix
 from voxelnet_tpu_torch.models.voxelnet import (STAGES, build_model,
                                                 make_inference_fn)
 from voxelnet_tpu_torch.ops.voxelize import (VoxelGridSpec, prepare,
@@ -137,13 +156,24 @@ SEED = 0
 TINY = {"object": {"x_max": 12.8, "y_min": -6.4, "y_max": 6.4},
         "data": {"max_points": 2048, "max_voxels": 256, "max_gt_boxes": 8},
         "train": {"compute_dtype": "float32"}, "rpn": {"score_thres": 0.0}}
-KERNELS = ("vfe_fused", "dense_build", "run_copy")
+KERNELS = ("vfe_fused", "dense_build", "run_copy", "sparse_conv",
+           "sparse_conv_grad")
+# the CUDA sources under voxelnet_tpu_torch/csrc/, and the source of each
+# kernel not named after its own
+SOURCES = ("vfe_fused", "dense_build", "run_copy", "sparse_conv")
+SOURCE = {"sparse_conv_grad": "sparse_conv"}
 REPLACES = {
     "vfe_fused": "voxelnet_tpu/kernels/vfe_fused.py:52",
     "dense_build": "voxelnet_tpu/kernels/dense_build.py:62",
     "run_copy": "voxelnet_tpu/kernels/voxelize_pallas.py:189 "
                 "(_planar_t_kernel), :79 (_planar_kernel), :48 (_kernel)",
+    # XLA code, no Pallas kernel: the 27 scatter-adds and their gradient
+    "sparse_conv": "voxelnet_tpu/models/sparse_conv.py:92-108 (the 27 "
+                   "scatter-adds)",
+    "sparse_conv_grad": "voxelnet_tpu/models/sparse_conv.py:92-108 (the "
+                        "gather of their autodiff)",
 }
+SPARSE1 = {"data": {"middle_backend": "sparse1"}}
 # NVIDIA H100 SXM data sheet, dense rates: HBM3 bandwidth, and the peak
 # operation rate by the type of the operands (bf16 on the tensor cores, f32
 # outside them)
@@ -170,12 +200,17 @@ HOST_VOX_REPS = 5
 # the port's Car model: its f32 parameters, the gradient all-reduce's size
 CAR_PARAMS = 6_809_392
 # the PR whose design each kernel runs
-DESIGN_PR = {"vfe_fused": 3, "dense_build": 1, "run_copy": 2}
+DESIGN_PR = {"vfe_fused": 3, "dense_build": 1, "run_copy": 2,
+             "sparse_conv": 8, "sparse_conv_grad": 8}
 # timed shapes beside each kernel's Car B=2 one: the fused VFE at the
 # inference B=8 batch; the dense grid in f32 (train) and its backward (a
-# torch gather, no kernel of the port)
+# torch gather, no kernel of the port); beside sparse_conv, the torch steps
+# of its path (the occupancy map and the product) and the dense grid that
+# its yardstick reads
 EXTRA_SHAPES = {"vfe_fused": ("vfe_fused_b8",),
-                "dense_build": ("dense_build_f32", "dense_build_grad")}
+                "dense_build": ("dense_build_f32", "dense_build_grad"),
+                "sparse_conv": ("sparse_conv_f32", "sparse_conv_occupancy",
+                                "sparse_conv_product", "sparse_conv_grid")}
 
 
 class CheckFailed(RuntimeError):
@@ -224,10 +259,10 @@ def device_ms(fn, reps: int = 50) -> float:
     return busy / 1e3 / reps
 
 
-def timed(fn) -> dict:
+def timed(fn, reps: int = 50) -> dict:
     """{"ms": cuda_ms(fn), "device_ms": device_ms(fn)} over the same
-    back-to-back calls."""
-    return {"ms": cuda_ms(fn), "device_ms": device_ms(fn)}
+    number of back-to-back calls."""
+    return {"ms": cuda_ms(fn, reps), "device_ms": device_ms(fn, reps)}
 
 
 def card_line() -> str:
@@ -482,39 +517,60 @@ def check_detections(det, config, batch):
 
 def reset_launches():
     vfe_fused.launches = dense_build.launches = run_copy.launches = 0
+    sparse_conv.launches = sparse_conv.grad_launches = 0
 
 
 def launch_counts() -> dict:
     return {"vfe_fused": vfe_fused.launches,
             "dense_build": dense_build.launches,
-            "run_copy": run_copy.launches}
+            "run_copy": run_copy.launches,
+            "sparse_conv": sparse_conv.launches,
+            "sparse_conv_grad": sparse_conv.grad_launches}
+
+
+def check_launched(what: str, launches: dict, ran=(), idle=()) -> None:
+    """Each kernel of `ran` launched, none of `idle`."""
+    check(all(launches[k] > 0 for k in ran)
+          and not any(launches[k] for k in idle),
+          f"{what}: launches {launches}, expected {list(ran)} launched and "
+          f"{list(idle)} not")
 
 
 def phase_main_path(model, frames, device):
-    """cli.predict's path on the 3 vendored frames at full Car width."""
+    """cli.predict's path on the 3 vendored frames at full Car width ->
+    (launches, the detections at score_thres 0)."""
     print("[4] main path: cli.predict on 3 vendored frames, Car, bf16")
     reset_launches()
-    results = {}
+    results, dets = {}, {}
     for thres in (0.96, 0.0):
         config = get_config("Car", rpn={"score_thres": thres})
         infer = make_inference_fn(config, device)
-        det = predict.predict(infer, model, frames, config,
-                              np.random.default_rng(SEED))
+        dets[thres] = predict.predict(infer, model, frames, config,
+                                      np.random.default_rng(SEED))
         torch.cuda.synchronize()
-        results[thres] = check_detections(det, config, len(frames))
+        results[thres] = check_detections(dets[thres], config, len(frames))
     launches = launch_counts()
     print(f"  valid detections per frame: score_thres 0.96 -> "
           f"{results[0.96]}, 0.0 -> {results[0.0]}; launches {launches}")
-    check(launches["vfe_fused"] > 0 and launches["dense_build"] > 0,
-          f"a kernel was not launched on the inference path: {launches}")
+    check_launched("inference path", launches, ("vfe_fused", "dense_build"),
+                   ("sparse_conv", "sparse_conv_grad"))
     check(sum(results[0.0]) > 0, "no detections at score_thres 0.0")
-    return launches
+    return launches, dets[0.0]
 
 
-def phase_small_reference(device, compat=None):
+def merged(base: dict, extra: dict) -> dict:
+    """base's groups updated with extra's (one level deep)."""
+    out = {k: dict(v) for k, v in base.items()}
+    for group, values in extra.items():
+        out.setdefault(group, {}).update(values)
+    return out
+
+
+def phase_small_reference(device, compat=None, overrides=None):
     """The same path at a tiny grid in f32: card against CPU (with the
-    `compat` overrides)."""
-    config = get_config("Car", **TINY, compat=compat or {})
+    `compat` and other config overrides)."""
+    config = get_config("Car", **merged(TINY, dict(overrides or {},
+                                                   compat=compat or {})))
     points, num = predict.stage_points(sample_frames()[:2], config,
                                        np.random.default_rng(SEED))
     check(int(num.min()) > 1000, f"tiny grid: only {num} points in the grid")
@@ -540,8 +596,8 @@ def phase_small_reference(device, compat=None):
           f"error {err}")
 
 
-def phase_timing(model, frames, device, card):
-    config = get_config("Car")
+def phase_timing(model, frames, device, card, overrides=None):
+    config = get_config("Car", **(overrides or {}))
     infer = make_inference_fn(config, device)
     rng = np.random.default_rng(SEED)
     for batch in (1, 8):
@@ -635,12 +691,14 @@ def finite_metrics(metrics) -> dict:
     return out
 
 
-def phase_train(frames, device, card, seed):
+def phase_train(frames, device, card, seed, overrides=None, batch_size=2,
+                ran=("run_copy", "dense_build"),
+                idle=("sparse_conv", "sparse_conv_grad"), label="5"):
     """make_train_step at full Car width on one repeated batch."""
-    print("[5] train path: make_train_step, Car, bf16, B=2, "
-          f"{TRAIN_STEPS} steps on one batch")
-    config = get_config("Car")
-    batch = train_batch(config, frames, config.train.batch_size, seed)
+    print(f"[{label}] train path: make_train_step, Car, bf16, B={batch_size}, "
+          f"{TRAIN_STEPS} steps on one batch, overrides {overrides or {}}")
+    config = get_config("Car", **(overrides or {}))
+    batch = train_batch(config, frames, batch_size, seed)
     state = create_train_state(config, build_model(config, seed=SEED),
                                device=device)
     step = make_train_step(config, device)
@@ -654,18 +712,17 @@ def phase_train(frames, device, card, seed):
     torch.cuda.synchronize()
     launches = launch_counts()
     print(f"  launches {launches}")
-    check(launches["run_copy"] > 0 and launches["dense_build"] > 0,
-          f"a kernel was not launched on the train path: {launches}")
+    check_launched("train path", launches, ran, idle)
     check(losses[-1] < 0.9 * losses[0],
           f"loss did not fall: first {losses[0]}, last {losses[-1]}")
     del state
     return launches
 
 
-def phase_train_small_reference(frames, device, seed):
+def phase_train_small_reference(frames, device, seed, overrides=None):
     """One f32 step at the tiny grid from the same weights and batch, on
     the card and on the CPU."""
-    config = get_config("Car", **TINY)
+    config = get_config("Car", **merged(TINY, overrides or {}))
     batch = train_batch(config, frames[:2], 2, seed)
     got = {}
     for dev in ("cpu", device):
@@ -685,11 +742,12 @@ def phase_train_small_reference(frames, device, seed):
     check(norm_rel <= 1e-3, f"tiny train step: grad_norm rel {norm_rel}")
 
 
-def phase_train_timing(frames, device, card, seed) -> dict:
-    """Step times at B=2 and B=8 -> {batch: step-alone frames/s}."""
-    config = get_config("Car")
+def phase_train_timing(frames, device, card, seed, overrides=None,
+                       batches=(2, 8)) -> dict:
+    """Step times at each of `batches` -> {batch: step-alone frames/s}."""
+    config = get_config("Car", **(overrides or {}))
     fps = {}
-    for batch_size in (2, 8):
+    for batch_size in batches:
         batch = train_batch(config, frames, batch_size, seed)
         batch = {k: torch.as_tensor(v, device=device)
                  for k, v in batch.items()}
@@ -1017,9 +1075,11 @@ def one_process_step(overrides: dict, frames, device, batch: int,
     return finite_metrics(m)
 
 
-def check_ranks_agree(name: str, outs: list[dict]) -> None:
+def check_ranks_agree(name: str, outs: list[dict],
+                      ran=("run_copy", "dense_build"), idle=()) -> None:
     """Every rank's metrics finite and equal to rank 0's, its parameters
-    bit-equal to rank 0's, both kernels of the train path launched."""
+    bit-equal to rank 0's, the kernels of the train path (`ran`) launched
+    and those of `idle` not."""
     for r, o in enumerate(outs):
         check(o["disagree"] == 0, f"{name}: ranks' parameters differ")
         for m in o["metrics"]:
@@ -1027,9 +1087,7 @@ def check_ranks_agree(name: str, outs: list[dict]) -> None:
                   f"{name}: non-finite metrics on rank {r}: {m}")
         check(o["metrics"] == outs[0]["metrics"],
               f"{name}: rank {r} metrics differ from rank 0's")
-        check(o["launches"]["run_copy"] > 0
-              and o["launches"]["dense_build"] > 0,
-              f"{name}: rank {r} launched a kernel no time: {o['launches']}")
+        check_launched(f"{name}: rank {r}", o["launches"], ran, idle)
 
 
 def check_dp_run(name: str, outs: list[dict], want: dict, loss_rel: float,
@@ -1593,6 +1651,283 @@ def phase_raw_to_kitti(device, tmp, card) -> dict:
     return launches
 
 
+# ---- phase 10: sparse1, block 1 from the voxel table
+
+# phase 10 (b): a detection of phase 4's conv3d run is matched by a sparse1
+# one of the same frame within these score and box gaps (m, rad)
+MATCH_SCORE = 2e-2
+MATCH_BOX = 0.1
+SPARSE_WINDOW = (96, 88)   # (x0, wloc) of the w_window check
+
+
+def vendored_table(config, model, frames, device, batch: int):
+    """The fused VFE's (voxelwise (B, K, 128) bf16, coords, counts) of
+    `batch` vendored frames (cycled) at full Car width."""
+    points, num = predict.stage_points(
+        [frames[i % len(frames)] for i in range(batch)], config,
+        np.random.default_rng(SEED))
+    prep = prepare(torch.from_numpy(points).to(device),
+                   torch.from_numpy(num).to(device),
+                   VoxelGridSpec.from_object_config(config.object),
+                   config.data.max_voxels)
+    fln = model.feature_net
+    w = (*vfe_fused.fold_layer(fln.vfe1.fcn, fln.vfe1.bn, 8),
+         *vfe_fused.fold_layer(fln.vfe2.fcn, fln.vfe2.bn, 32))
+    feat = vfe_fused.vfe_fused(prep.sorted_planar, prep.run_start,
+                               prep.num_voxels, prep.counts, *w,
+                               config.object.points_per_voxel)
+    return feat, prep.coords, prep.counts
+
+
+def phase_sparse_kernels(config, model, frames, device, card):
+    """(a) Both sparse-conv kernels against their plain versions at Car
+    B=2 -> (times, errs, bounds) in phase 3's form."""
+    print("[10] sparse1 (a): sparse_conv and its gradient against their "
+          "plain versions (Car, B=2, fused VFE on the vendored frames)")
+    grid = tuple(config.object.grid_size)
+    D, H, W = grid
+    n_cells = D * H * W
+    conv = model.middle.ConvBlock3D_0.Conv_0
+    stride, pad = conv.stride[0], conv.padding[0]
+    x0, wloc = SPARSE_WINDOW
+    with torch.inference_mode():
+        feat, coords, counts = vendored_table(config, model, frames, device,
+                                              2)
+        B, K, cin = feat.shape
+        wmat = weight_matrix(conv.weight.to(torch.bfloat16))
+        bias = conv.bias.float()
+        occ = sparse_conv.occupancy_map(coords, counts, grid)
+        vals = (feat @ wmat).view(B, K, 27, -1)
+        vals32 = vals.float()
+        cout = vals.shape[-1]
+
+        def fwd(v):
+            return sparse_conv.sparse_conv(v, coords, counts, occ, bias,
+                                           stride, pad)
+
+        def fwd_plain(v):
+            return sparse_conv.sparse_conv_plain(v, coords, counts, bias,
+                                                 grid, stride, pad)
+
+        err = 0.0
+        for v in (vals, vals32):
+            got, want = fwd(v), fwd_plain(v)
+            torch.cuda.synchronize()
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            check(torch.equal(got, want),
+                  f"sparse_conv {v.dtype} differs from plain")
+            print(f"  sparse_conv {v.dtype}: bit-equal over {got.numel()} "
+                  "elements")
+        got = fwd(vals)
+        win = sparse_conv.sparse_conv(vals, coords, counts, occ, bias,
+                                      stride, pad, SPARSE_WINDOW)
+        torch.cuda.synchronize()
+        check(torch.equal(win, got[:, :, :, x0:x0 + wloc]),
+              "sparse_conv's w_window differs from the full output's slice")
+        print(f"  sparse_conv w_window={SPARSE_WINDOW}: equal to the full "
+              "output's columns")
+        g = torch.Generator(device=device).manual_seed(SEED)
+        cot = torch.randn(tuple(got.shape), generator=g, device=device).to(
+            torch.bfloat16)
+        dgot = sparse_conv.sparse_conv_grad(cot, coords, counts, stride, pad)
+        dwant = sparse_conv.sparse_conv_grad_plain(cot, coords, counts,
+                                                   stride, pad)
+        torch.cuda.synchronize()
+        check(torch.equal(dgot, dwant), "sparse_conv_grad differs from plain")
+        print(f"  sparse_conv_grad: bit-equal over {dgot.numel()} elements")
+        errs = {"sparse_conv": err, "sparse_conv_grad": float(
+            (dgot.float() - dwant.float()).abs().max())}
+
+        # the taps that reach the output: the rows of vals the forward
+        # reads, the rows of dout the gradient gathers
+        sites = sparse_conv.tap_sites(coords, counts, stride, pad,
+                                      tuple(got.shape[1:4]))
+        hits = int((sites < got[..., 0].numel()).sum())
+        live = int((counts > 0).sum())
+        ids = torch.where(counts > 0, (coords[..., 0] * H + coords[..., 1])
+                          * W + coords[..., 2], n_cells).to(torch.int32)
+        dense = dense_build.dense_build(feat, ids, n_cells).view(
+            B, D, H, W, cin).permute(0, 4, 1, 2, 3)
+        wcl = conv.weight.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last_3d)
+        b16 = conv.bias.to(torch.bfloat16)
+        flat = torch.cat([cot.reshape(-1, cout), cot.new_zeros((1, cout))])
+        rows = sites.reshape(-1)
+        # name -> (kernel, plain version, one torch call or None); the
+        # plain versions (~14 ms a call) over 5 calls a window
+        times = {
+            "sparse_conv": (
+                timed(lambda: fwd(vals)), timed(lambda: fwd_plain(vals), 5),
+                timed(lambda: torch.nn.functional.conv3d(
+                    dense, wcl, b16, conv.stride, conv.padding))),
+            "sparse_conv_f32": (timed(lambda: fwd(vals32)),
+                                timed(lambda: fwd_plain(vals32), 5), None),
+            "sparse_conv_occupancy": (timed(lambda: sparse_conv.occupancy_map(
+                coords, counts, grid)), None, None),
+            "sparse_conv_product": (timed(lambda: feat @ wmat), None, None),
+            "sparse_conv_grid": (timed(lambda: dense_build.dense_build(
+                feat, ids, n_cells)), None, None),
+            "sparse_conv_grad": (
+                timed(lambda: sparse_conv.sparse_conv_grad(
+                    cot, coords, counts, stride, pad)),
+                timed(lambda: sparse_conv.sparse_conv_grad_plain(
+                    cot, coords, counts, stride, pad), 5),
+                timed(lambda: flat.index_select(0, rows))),
+        }
+    for name, parts in times.items():
+        print(f"  {name}: " + ", ".join(
+            f"{what} {t['ms']} ms (device {t['device_ms']} ms)"
+            for what, t in zip(("kernel", "plain", "one torch call"), parts)
+            if t is not None) + f" [{card}]")
+    print("  one torch calls: sparse_conv cuDNN's Conv3d of block 1 on the "
+          "dense grid (built by dense_build, sparse_conv_grid), "
+          "sparse_conv_grad one index_select of the rows")
+    out_elems = got.numel()
+    bounds = {
+        # the rows the taps read, the map, the bias, the output written;
+        # one f32 add a tap and channel
+        "sparse_conv": bound(hits * cout * 2 + nbytes(occ, bias)
+                             + out_elems * 2, hits * cout),
+        "sparse_conv_f32": bound(hits * cout * 4 + nbytes(occ, bias)
+                                 + out_elems * 4, hits * cout),
+        "sparse_conv_occupancy": bound(nbytes(coords, counts, occ)),
+        # the live rows' product on the tensor cores, all of vals written
+        "sparse_conv_product": bound(
+            live * cin * 2 + nbytes(wmat, vals), 2 * live * cin * 27 * cout,
+            torch.bfloat16),
+        "sparse_conv_grid": bound(nbytes(feat, ids) + B * n_cells * cin * 2),
+        "sparse_conv_grad": bound(hits * cout * 2 + nbytes(coords, counts)
+                                  + dgot.numel() * 2),
+    }
+    print(f"  live voxels {live}, taps that reach the output {hits}")
+    for name, (ms, by) in bounds.items():
+        print(f"  {name}: bound {ms} ms ({by}) at these inputs")
+    return times, errs, bounds
+
+
+def match_detections(got, want) -> dict:
+    """Detections of two runs compared by score and box, not by slot (top-k
+    and NMS ties, ROADMAP queue 3): per frame the valid counts, the sorted
+    scores' largest gap, and the share of `want`'s detections that one of
+    `got`'s matches within MATCH_SCORE and MATCH_BOX (overall and of each
+    frame's 20 best), with the largest gaps of the matches."""
+    out = {"counts": [], "sorted_score_gap": 0.0, "detections": 0,
+           "matched": 0, "best20": 0, "best20_of": 0, "score_gap": 0.0,
+           "box_gap": 0.0}
+    for b in range(got.scores.shape[0]):
+        gs = got.scores[b][got.valid[b]].float().cpu()
+        gb = got.boxes[b][got.valid[b]].float().cpu()
+        ws = want.scores[b][want.valid[b]].float().cpu()
+        wb = want.boxes[b][want.valid[b]].float().cpu()
+        out["counts"].append((len(gs), len(ws)))
+        k = min(len(gs), len(ws))
+        if k:
+            out["sorted_score_gap"] = max(out["sorted_score_gap"], float(
+                (gs.sort(descending=True).values[:k]
+                 - ws.sort(descending=True).values[:k]).abs().max()))
+        top = ws.argsort(descending=True)[:20]
+        out["detections"] += len(ws)
+        out["best20_of"] += len(top)
+        if not (len(gs) and len(ws)):
+            continue
+        dscore = (ws[:, None] - gs[None]).abs()
+        dbox = (wb[:, None] - gb[None]).abs().amax(-1)
+        gap = torch.where(dscore <= MATCH_SCORE, dbox, math.inf).amin(1)
+        hit = gap <= MATCH_BOX
+        out["matched"] += int(hit.sum())
+        out["best20"] += int(hit[top].sum())
+        if hit.any():
+            out["box_gap"] = max(out["box_gap"], float(gap[hit].max()))
+            out["score_gap"] = max(out["score_gap"], float(torch.where(
+                dbox <= MATCH_BOX, dscore, math.inf).amin(1)[hit].max()))
+    return out
+
+
+def phase_sparse_inference(model, frames, device, card, conv3d_dets,
+                           tmp) -> dict:
+    """(b) Car inference with sparse1 through make_inference_fn (phase 4's
+    calls) and cli.predict -> its launches."""
+    print("[10] sparse1 (b): Car inference, bf16, 3 vendored frames, "
+          "predict() and cli.predict --cfg")
+    reset_launches()
+    dets = {}
+    for thres in (0.96, 0.0):
+        config = get_config("Car", rpn={"score_thres": thres}, **SPARSE1)
+        dets[thres] = predict.predict(make_inference_fn(config, device),
+                                      model, frames, config,
+                                      np.random.default_rng(SEED))
+        torch.cuda.synchronize()
+        counts = check_detections(dets[thres], config, len(frames))
+        print(f"  score_thres {thres}: valid detections {counts}")
+    cfg = os.path.join(tmp, "sparse1.yaml")
+    with open(cfg, "w") as f:
+        f.write("data: {middle_backend: sparse1}\n")
+    out = run_cli(predict.main, ["--pcl", "sample:0", "--cfg", cfg,
+                                 "--device", device.type])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"  cli.predict --cfg: {out.splitlines()[0]}; launches {launches}")
+    check_launched("sparse1 inference", launches, ("vfe_fused", "sparse_conv"),
+                   ("dense_build", "sparse_conv_grad"))
+    m = match_detections(dets[0.0], conv3d_dets)
+    print(f"  against phase 4's conv3d detections at score_thres 0 (score "
+          f"within {MATCH_SCORE}, box within {MATCH_BOX}): {m}")
+    check(m["detections"] > 0 and m["sorted_score_gap"] <= MATCH_SCORE
+          and m["matched"] >= 0.5 * m["detections"],
+          f"sparse1 detections differ from conv3d's: {m}")
+    phase_small_reference(device, overrides=SPARSE1)
+    print("  sparse1 inference times:")
+    phase_timing(model, frames, device, card, SPARSE1)
+    return launches
+
+
+def phase_sparse_train(frames, device, card, seed, tmp):
+    """(c) The train step with sparse1 at Car B=8, one tiny f32 step on the
+    card against the CPU, step times; cli.train (the Trainer) for one
+    epoch and two gloo ranks -> the launches of the step, the trainer and
+    rank 0."""
+    ran, idle = ("run_copy", "sparse_conv", "sparse_conv_grad"), (
+        "dense_build",)
+    launches = phase_train(frames, device, card, seed, SPARSE1, batch_size=8,
+                           ran=ran, idle=idle, label="10c")
+    phase_train_small_reference(frames, device, seed, SPARSE1)
+    phase_train_timing(frames, device, card, seed, SPARSE1, batches=(8,))
+
+    cfg = os.path.join(tmp, "sparse1_train.yaml")
+    with open(cfg, "w") as f:
+        f.write("data: {middle_backend: sparse1}\ntrain: {num_epochs: 1}\n")
+    exp = os.path.join(tmp, "exp_sparse1")
+    reset_launches()
+    out = run_cli(train_cli.main, [
+        "--data-dir", os.path.join(tmp, "kitti"), "--exp-dir", exp,
+        "--device", device.type, "--cfg", cfg, "--print-interval", "1"])
+    torch.cuda.synchronize()
+    trainer = launch_counts()
+    logged = [line for line in out.splitlines()
+              if line.startswith(("Train ", "Epoch "))]
+    metrics = [float(v) for line in logged for v in re.findall(
+        r"(?:loss|reg|cls|avg_val_loss) (\S+)", line)]
+    print("  cli.train, 1 epoch:" + "".join(f"\n    {x}" for x in logged)
+          + f"\n  launches {trainer}")
+    check_launched("sparse1 cli.train", trainer, ran, idle)
+    check(metrics and all(math.isfinite(v) for v in metrics),
+          f"sparse1 cli.train metrics {metrics}")
+    check(os.listdir(os.path.join(exp, "checkpoints")) == ["0"],
+          "sparse1 cli.train wrote no checkpoint 0")
+
+    run = {"name": "sparse1", "overrides": SPARSE1, "batch": 4,
+           "seed": seed, "steps": 2, "timed": 0}
+    t0 = time.perf_counter()
+    outs = [o["sparse1"] for o in run_dp_workers(tmp, "sparse1", "gloo",
+                                                 "cuda:0", [run])]
+    check_ranks_agree("sparse1, 2 gloo ranks x B=2", outs, ran, idle)
+    print(f"  2 gloo ranks on cuda:0, Car B=2 a rank, 2 steps "
+          f"({time.perf_counter() - t0} s with the ranks' start): losses "
+          f"{[m['loss'] for m in outs[0]['metrics']]}, ranks bit-identical,"
+          f" launches per rank {[o['launches'] for o in outs]}")
+    return launches, trainer, outs[0]["launches"]
+
+
 def kernel_entry(name, times, errs, bounds, launches, by_path) -> dict:
     """One kernel's object of the {"kernels": [...]} line: event and
     profiler device times of the kernel, its plain version and its one
@@ -1609,7 +1944,7 @@ def kernel_entry(name, times, errs, bounds, launches, by_path) -> dict:
 
     lib = times[name][2]
     entry = {"name": name, "route": "cuda",
-             "source": f"voxelnet_tpu_torch/csrc/{name}.cu",
+             "source": f"voxelnet_tpu_torch/csrc/{SOURCE.get(name, name)}.cu",
              "replaces": REPLACES[name], "design_pr": DESIGN_PR[name],
              "launches": launches[name],
              "launches_by_path": {path: counts[name]
@@ -1650,8 +1985,8 @@ def main(argv=None):
           f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    _build.build(KERNELS)
-    for module in (vfe_fused, dense_build, run_copy):
+    _build.build(SOURCES)
+    for module in (vfe_fused, dense_build, run_copy, sparse_conv):
         _build.load(module.__name__.rsplit(".", 1)[1], module._ARGTYPES)
     print(f"[2] built {sorted(_build.build_seconds)} in "
           f"{time.perf_counter() - t0} s ({_build.build_seconds})")
@@ -1663,7 +1998,7 @@ def main(argv=None):
     config = get_config("Car")
     model = make_model(config, device)
     times, errs, bounds = phase_kernels(config, model, frames, device, card)
-    infer_launches = phase_main_path(model, frames, device)
+    infer_launches, conv3d_dets = phase_main_path(model, frames, device)
     phase_small_reference(device)
     phase_timing(model, frames, device, card)
     del model
@@ -1683,12 +2018,32 @@ def main(argv=None):
         vis_trainer = phase_vis_trainer(frames, device, tmp, card)
         raw_train = phase_raw_to_kitti(device, tmp, card)
         print(f"[9] phase 9 took {time.perf_counter() - t9} s")
+        took = [time.perf_counter()]
+        model = make_model(config, device)
+        for part, more in zip((times, errs, bounds), phase_sparse_kernels(
+                config, model, frames, device, card)):
+            part.update(more)
+        took.append(time.perf_counter())
+        sparse_infer = phase_sparse_inference(model, frames, device, card,
+                                              conv3d_dets, tmp)
+        del model
+        took.append(time.perf_counter())
+        sparse_train, sparse_trainer, sparse_dp = phase_sparse_train(
+            frames, device, card, args.seed, tmp)
+        took.append(time.perf_counter())
+        print(f"[10] phase 10 took {took[-1] - took[0]} s: (a) "
+              f"{took[1] - took[0]}, (b) {took[2] - took[1]}, (c) "
+              f"{took[3] - took[2]} s")
 
     # each kernel's count on the path of the slice that brought it: the
-    # fused VFE runs only for inference, the others on the train step
+    # fused VFE runs only for inference, dense_build and run_copy on the
+    # train step; sparse_conv on sparse1's inference, its gradient on
+    # sparse1's train step
     launches = {"vfe_fused": infer_launches["vfe_fused"],
                 "dense_build": train_launches["dense_build"],
-                "run_copy": train_launches["run_copy"]}
+                "run_copy": train_launches["run_copy"],
+                "sparse_conv": sparse_infer["sparse_conv"],
+                "sparse_conv_grad": sparse_train["sparse_conv_grad"]}
     print(card)
     by_path = {"inference": infer_launches, "train": train_launches,
                "trainer": trainer_launches,
@@ -1699,7 +2054,11 @@ def main(argv=None):
                "bn_over_padding_inference": ghost,
                "reference_api_inference": ref_api,
                "vis_trainer": vis_trainer,
-               "raw_to_kitti_train": raw_train}
+               "raw_to_kitti_train": raw_train,
+               "sparse1_inference": sparse_infer,
+               "sparse1_train": sparse_train,
+               "sparse1_trainer": sparse_trainer,
+               "sparse1_data_parallel_rank0": sparse_dp}
     entries = [kernel_entry(name, times, errs, bounds, launches, by_path)
                for name in KERNELS]
     entries[KERNELS.index("vfe_fused")].update(vfe_info)

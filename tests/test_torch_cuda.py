@@ -14,7 +14,8 @@ from torch_port_helpers import (TINY, assert_bf16_close,  # noqa: F401
                                 cuda_device, merged)
 
 from voxelnet_tpu_torch.config import get_config
-from voxelnet_tpu_torch.kernels import dense_build, run_copy, vfe_fused
+from voxelnet_tpu_torch.kernels import (dense_build, run_copy, sparse_conv,
+                                        vfe_fused)
 from voxelnet_tpu_torch.models.init import randomize_bn_
 from voxelnet_tpu_torch.models.voxelnet import build_model, make_inference_fn
 from voxelnet_tpu_torch.ops import voxelize
@@ -212,6 +213,108 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
             torch.zeros(1, **i32), torch.zeros(1, 8, **i32),
             torch.zeros(16, 8, **f32), torch.zeros(16, 3, **f32),
             torch.zeros(64, 32, **f32), torch.zeros(64, 3, **f32), 128)
+
+
+def _sparse_table(rng, grid, K):
+    """coords/counts (3, K, ...) int32: frames 0 and 1 hold voxels at
+    sorted random sites, frame 2 none; padding rows carry garbage coords."""
+    D, H, W = grid
+    coords = rng.integers(-4, max(grid) + 4, (3, K, 3)).astype(np.int32)
+    counts = np.zeros((3, K), np.int32)
+    for b, n in ((0, K - 12), (1, K // 4)):
+        lin = np.sort(rng.choice(D * H * W, n, replace=False))
+        coords[b, :n] = np.stack([lin // (H * W), (lin // W) % H, lin % W],
+                                 axis=1)
+        counts[b, :n] = 1
+    return coords, counts
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("stride_d,pad_d", [(2, 1), (1, 0)])
+def test_sparse_conv_kernels_match_plain(cuda_device, dtype, stride_d,
+                                         pad_d):
+    """Both sparse-conv kernels bit-equal to their plain versions, on the
+    whole W and on a window of it; one launch each."""
+    rng = np.random.default_rng(stride_d)
+    grid, K, C = (10, 40, 36), 512, 64
+    coords, counts = _sparse_table(rng, grid, K)
+    c = torch.from_numpy(coords).to(cuda_device)
+    n = torch.from_numpy(counts).to(cuda_device)
+    occ = sparse_conv.occupancy_map(c, n, grid)
+    assert torch.equal(occ.cpu(), sparse_conv.occupancy_map(
+        c.cpu(), n.cpu(), grid))
+    vals = torch.from_numpy(rng.normal(0, 1, (3, K, 27, C)).astype(
+        np.float32)).to(cuda_device, dtype)
+    bias = torch.from_numpy(rng.normal(0, 1, C).astype(np.float32)).to(
+        cuda_device)
+    before = (sparse_conv.launches, sparse_conv.grad_launches)
+    got = sparse_conv.sparse_conv(vals, c, n, occ, bias, stride_d, pad_d)
+    win = sparse_conv.sparse_conv(vals, c, n, occ, bias, stride_d, pad_d,
+                                  (7, 20))
+    dout = torch.from_numpy(rng.normal(0, 1, tuple(got.shape)).astype(
+        np.float32)).to(cuda_device, dtype)
+    dvals = sparse_conv.sparse_conv_grad(dout, c, n, stride_d, pad_d)
+    dwin = sparse_conv.sparse_conv_grad(dout[:, :, :, 7:27].contiguous(), c,
+                                        n, stride_d, pad_d, 7)
+    torch.cuda.synchronize()
+    assert (sparse_conv.launches, sparse_conv.grad_launches) == (
+        before[0] + 2, before[1] + 2)
+    args = (c.cpu(), n.cpu())
+    assert torch.equal(got.cpu(), sparse_conv.sparse_conv_plain(
+        vals.cpu(), *args, bias.cpu(), grid, stride_d, pad_d))
+    assert torch.equal(win.cpu(), got[:, :, :, 7:27].cpu())
+    assert torch.equal(dvals.cpu(), sparse_conv.sparse_conv_grad_plain(
+        dout.cpu(), *args, stride_d, pad_d))
+    assert torch.equal(dwin.cpu(), sparse_conv.sparse_conv_grad_plain(
+        dout[:, :, :, 7:27].cpu(), *args, stride_d, pad_d, 7))
+    assert (got[2] == bias.to(dtype)).all() and dvals[1, K // 4:].eq(0).all()
+
+
+def test_sparse_conv_wrappers_refuse_what_the_kernels_do_not_take(
+        cuda_device):
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    c, n = torch.zeros(1, 8, 3, **i32), torch.ones(1, 8, **i32)
+    occ = sparse_conv.occupancy_map(c, n, (4, 5, 6))
+    vals = torch.zeros(1, 8, 27, 64, device=cuda_device)
+    bias = torch.zeros(64, device=cuda_device)
+    with pytest.raises(ValueError, match="bfloat16 or torch.float32"):
+        sparse_conv.sparse_conv(vals.double(), c, n, occ, bias, 2, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        sparse_conv.sparse_conv(vals, c, n.cpu(), occ, bias, 2, 1)
+    with pytest.raises(ValueError, match="bias must be torch.float32"):
+        sparse_conv.sparse_conv(vals, c, n, occ, bias.bfloat16(), 2, 1)
+    with pytest.raises(ValueError, match="16-byte chunks"):
+        sparse_conv.sparse_conv(vals[..., :6].contiguous(), c, n, occ,
+                                bias[:6], 2, 1)
+    with pytest.raises(ValueError, match="coords must be torch.int32"):
+        sparse_conv.sparse_conv_grad(torch.zeros(1, 2, 5, 6, 64,
+                                                 device=cuda_device),
+                                     c.long(), n, 2, 1)
+
+
+def test_sparse1_inference_on_card_matches_cpu(cuda_device):
+    """middle_backend='sparse1' at the tiny grid in f32: the card's
+    detections against the CPU's (f32 convs and products in another
+    summation order), and the path launched sparse_conv, not dense_build."""
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("Car", **merged(TINY, rpn={"score_thres": 0.0},
+                                     data={"middle_backend": "sparse1"}))
+    model = _model(cfg, seed=3)
+    pts, num = _points(cfg, 1)
+    want = make_inference_fn(cfg, "cpu")(model, pts, num)
+    before = (sparse_conv.launches, dense_build.launches)
+    got = make_inference_fn(cfg, cuda_device)(model.to(cuda_device), pts,
+                                              num)
+    torch.cuda.synchronize()
+    assert sparse_conv.launches > before[0]
+    assert dense_build.launches == before[1]
+    assert torch.equal(got.valid.sum(1).cpu(), want.valid.sum(1))
+    for b in range(2):
+        gs = got.scores[b][got.valid[b]].cpu()
+        ws = want.scores[b][want.valid[b]]
+        torch.testing.assert_close(gs.sort(descending=True).values,
+                                   ws.sort(descending=True).values,
+                                   rtol=0, atol=1e-4)
 
 
 def test_inference_on_card_matches_cpu(cuda_device):

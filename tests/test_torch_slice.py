@@ -61,13 +61,17 @@ def test_whole_slice_matches_jax():
     ("vfe_backend", VFE_BACKENDS), ("dense_build", DENSE_BUILDS)])
 def test_resolver_maps_every_lowering_to_one_path(key, values):
     """Every value the JAX package accepts for a lowering knob resolves to
-    the port's one path: the same plan as the defaults."""
+    the port's one path: the same plan as the defaults, but for
+    middle_backend='sparse1', which differs in the middle alone
+    (tests/test_torch_sparse1.py)."""
     want = resolve_plan(get_config("Car"))
-    assert want == (True, "bfloat16", 1, 0)
+    assert want == (True, "bfloat16", 1, 0, "conv3d")
     for value in values:
-        assert resolve_plan(get_config("Car", data={key: value})) == want
+        got = resolve_plan(get_config("Car", data={key: value}))
+        assert got == (want._replace(middle="sparse1") if value == "sparse1"
+                       else want)
     assert resolve_plan(get_config("Car", data={"fold_bn": "off"})) == (
-        False, "bfloat16", 1, 0)
+        False, "bfloat16", 1, 0, "conv3d")
 
 
 @pytest.mark.parametrize("overrides,match", [

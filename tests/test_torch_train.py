@@ -341,17 +341,16 @@ F64 = merged(TINY, train={"compute_dtype": "float64"},
              data={"max_voxels": 2048, "max_points": 8192})
 
 
-@pytest.fixture(scope="module")
-def jax_f64_step():
+def run_jax_f64_step(overrides):
     """One JAX make_train_step at float64 (x64 on for its trace and run)
-    from random variables: (variables, batch, new params, new batch_stats,
-    metrics), all numpy."""
+    from random variables for the config of `overrides`: (variables,
+    batch, new params, new batch_stats, metrics), all numpy."""
     from voxelnet_tpu.training.optim import make_optimizer
     from voxelnet_tpu.training.train_step import TrainState
     from voxelnet_tpu.training.train_step import \
         make_train_step as jax_make_train_step
 
-    jcfg, _ = configs(overrides=F64)
+    jcfg, _ = configs(overrides=overrides)
     variables = init_scale_biases(jax_variables(jcfg, seed=21), 21)
     batch = step_batch(jcfg, seed=21, n=8000)
     tx = make_optimizer(jcfg, STEPS_PER_EPOCH)
@@ -371,24 +370,17 @@ def jax_f64_step():
     return (variables, batch) + out
 
 
-def test_one_train_step_matches_jax_in_float64(jax_f64_step):
-    """Loss, grad_norm, every updated param and every batch_stat (flax's
-    biased running variance) after one step. In f64 flax's dtype=float32
-    BatchNorms take f32 statistics and return f32; the port's keep f64
-    statistics and return f32, so the stacks agree to f32 rounding of
-    those statistics, not to f64's.
+@pytest.fixture(scope="module")
+def jax_f64_step():
+    return run_jax_f64_step(F64)
 
-    Tolerances, with the gaps measured on these inputs: loss 5e-5
-    relative (2.5e-6) and weights 2e-4 absolute (9.6e-5), as in
-    test_parity_torch.py's one-step test; batch_stats 2e-5 absolute
-    (4.2e-6). The grad norm, 5e-3 relative (4.7e-4; 2.1e-3 with the
-    port's statistics in f32 too): per tensor the gradients differ by a
-    few % in one direction, because units of this piecewise-linear net
-    whose inputs sit within the statistics' f32 rounding of a ReLU
-    boundary flip; the norm is dominated by the few largest tensors. Each
-    leaf's update, new minus old, 10% of its L2 norm (5.5% at most)."""
-    variables, batch, want_params, want_stats, want = jax_f64_step
-    _, tcfg = configs(overrides=F64)
+
+def check_f64_step(jax_step, overrides):
+    """The port's step at float64 from JAX's variables and batch against
+    JAX's step (run_jax_f64_step), with the tolerances of
+    test_one_train_step_matches_jax_in_float64."""
+    variables, batch, want_params, want_stats, want = jax_step
+    _, tcfg = configs(overrides=overrides)
     _assert_no_ties(tcfg, batch)
     state = create_train_state(tcfg, torch_model(tcfg, variables),
                                device="cpu")
@@ -433,6 +425,25 @@ def test_one_train_step_matches_jax_in_float64(jax_f64_step):
     for path, leaf in want_s.items():
         np.testing.assert_allclose(got_s[path], leaf, rtol=0, atol=2e-5,
                                    err_msg=path)
+
+
+def test_one_train_step_matches_jax_in_float64(jax_f64_step):
+    """Loss, grad_norm, every updated param and every batch_stat (flax's
+    biased running variance) after one step. In f64 flax's dtype=float32
+    BatchNorms take f32 statistics and return f32; the port's keep f64
+    statistics and return f32, so the stacks agree to f32 rounding of
+    those statistics, not to f64's.
+
+    Tolerances, with the gaps measured on these inputs: loss 5e-5
+    relative (2.5e-6) and weights 2e-4 absolute (9.6e-5), as in
+    test_parity_torch.py's one-step test; batch_stats 2e-5 absolute
+    (4.2e-6). The grad norm, 5e-3 relative (4.7e-4; 2.1e-3 with the
+    port's statistics in f32 too): per tensor the gradients differ by a
+    few % in one direction, because units of this piecewise-linear net
+    whose inputs sit within the statistics' f32 rounding of a ReLU
+    boundary flip; the norm is dominated by the few largest tensors. Each
+    leaf's update, new minus old, 10% of its L2 norm (5.5% at most)."""
+    check_f64_step(jax_f64_step, F64)
 
 
 def test_eval_step_matches_jax():

@@ -63,7 +63,8 @@ class DataConfig:
     shuffle_points: bool = True
     crop_to_grid: bool = True     # drop out-of-grid points before the cap
     # lowering knobs of the JAX package; the port maps every accepted
-    # value onto its one path (resolve_plan)
+    # value onto its one path (resolve_plan), but for middle_backend
+    # 'sparse1', which it runs as a path of its own
     voxelizer_backend: str = "auto"
     vfe_backend: str = "auto"
     train_vfe_backend: str = "auto"
@@ -299,16 +300,28 @@ REMATS = ("none", "seams", "full")
 
 
 class Plan(NamedTuple):
-    """What a config selects on the port's single path: the run-copy
-    voxel table (train/eval steps), the fused VFE kernel (inference), the
-    streaming dense-grid kernel, the Conv3D middle (nn.Conv3d) and the
-    depth->BEV fold as a reshape of NCDHW; and the processes the batch
-    axes of the mesh run on (parallel/mesh.py)."""
+    """What a config selects on the port's path: the run-copy voxel table
+    (train/eval steps), the fused VFE kernel (inference), the middle's
+    block 1 (the streaming dense-grid kernel and an nn.Conv3d, or
+    'sparse1''s sparse conv of the voxel table), blocks 2-3 (nn.Conv3d)
+    and the depth->BEV fold as a reshape of NCDHW; and the processes the
+    batch axes of the mesh run on (parallel/mesh.py)."""
 
     fold_bn: bool    # data.fold_bn: 'off' keeps the separate BN ops
     dtype: str       # train.compute_dtype
     world_size: int = 1   # processes, one card each (dcn x data shards)
     rank: int = 0
+    # 'sparse1' for data.middle_backend='sparse1'; 'conv3d' for every other
+    # value, 'auto' included, as the JAX resolver answers off the TPU
+    middle: str = "conv3d"
+
+
+def middle_path(middle_backend: str) -> str:
+    """data.middle_backend -> the port's middle: 'sparse1' (block 1 from
+    the voxel table, models/sparse_conv.py) or 'conv3d' for every other
+    accepted value. 'auto' stays 'conv3d', the JAX resolver's answer off
+    the TPU (`voxelnet_tpu/models/voxelnet.py:226-236`)."""
+    return "sparse1" if middle_backend == "sparse1" else "conv3d"
 
 
 def _check(name: str, value: str, allowed: tuple[str, ...]) -> None:
@@ -318,17 +331,20 @@ def _check(name: str, value: str, allowed: tuple[str, ...]) -> None:
 
 def resolve_plan(config: VoxelNetConfig, train: bool = False) -> Plan:
     """Map every accepted value of the JAX package's lowering knobs onto
-    the port's one path.
+    the port's path.
 
-    The JAX lowerings (`wpack2`, `folded2d`, `dsplit`, the three Pallas
-    run-copy layouts, ...) are the same math in TPU-friendly layouts; the
-    port runs NCDHW convs, where the depth->BEV fold is a reshape, and one
-    run-copy kernel for every table layout. The mesh's batch axes
-    (`system.num_dcn_shards x num_data_shards`) are processes, one card
-    each: their product must equal the running world size (1 without a
-    process group). `compat.bn_over_padding` (the reference's
-    ghost-activation VFE) takes the table VFE at inference, since the fused
-    kernel implements only the masked max. Raises where the port cannot
+    The JAX lowerings (`wpack2`, `folded2d`, `sparsebwd`, `dsplit`, the
+    three Pallas run-copy layouts, ...) are the same math in TPU-friendly
+    layouts; the port runs NCDHW convs, where the depth->BEV fold is a
+    reshape, and one run-copy kernel for every table layout.
+    `middle_backend='sparse1'` alone selects another middle: block 1
+    computed from the voxel table (`Plan.middle`, `middle_path`); 'auto'
+    stays conv3d. The mesh's batch axes (`system.num_dcn_shards x
+    num_data_shards`) are processes, one card each: their product must
+    equal the running world size (1 without a process group).
+    `compat.bn_over_padding` (the reference's ghost-activation VFE) takes
+    the table VFE at inference, since the fused kernel implements only the
+    masked max. Raises where the port cannot
     give the configured semantics, with the JAX resolvers' messages where
     they have one: `data.vfe_backend='fused'` with `bn_over_padding`,
     `train_vfe_backend='planar'` with `train.host_voxelize`, a 'model' axis
@@ -364,4 +380,5 @@ def resolve_plan(config: VoxelNetConfig, train: bool = False) -> Plan:
             f"train.remat={config.train.remat!r} — expected one of {REMATS}")
     return Plan(fold_bn=data.fold_bn != "off",
                 dtype=config.train.compute_dtype,
-                world_size=procs.world_size, rank=procs.rank)
+                world_size=procs.world_size, rank=procs.rank,
+                middle=middle_path(data.middle_backend))

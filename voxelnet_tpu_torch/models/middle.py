@@ -1,8 +1,11 @@
-"""3D convolutional middle layers, the `conv3d` lowering of
+"""3D convolutional middle layers, the `conv3d` and `sparse1` lowerings of
 `voxelnet_tpu/models/middle.py`: three Conv3D+BN+ReLU blocks collapsing the
 depth axis (Car: 10 -> 5 -> 3 -> 2), then the c-major depth->BEV fold
-(bev_channel = c * D' + d). Module names follow the flax tree so the
-weight bridge (convert.py) maps paths one to one.
+(bev_channel = c * D' + d). `forward` takes the dense grid; `from_table`
+(sparse1) runs block 1 on its own Conv_0 weight and bias straight from the
+voxel table (models/sparse_conv.py) and blocks 2-3 as Conv3d. Both share
+one parameter tree, whose module names follow the flax tree so the weight
+bridge (convert.py) maps paths one to one.
 
 Conv weights are cast to the input's dtype at use (f32 master weights,
 as flax's `dtype`/`param_dtype`; a no-op on the inference copy, whose
@@ -17,6 +20,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from voxelnet_tpu_torch.models.bn import flax_batch_norm
+from voxelnet_tpu_torch.models.sparse_conv import sparse_conv3x3
 
 # (cout, depth stride, depth pad) per block
 BLOCKS = ((64, 2, 1), (64, 1, 0), (64, 2, 1))
@@ -40,6 +44,15 @@ class ConvBlock3D(nn.Module):
         y = F.conv3d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
                      conv.stride, conv.padding)
         return bn_relu(self.BatchNorm_0, y, x.dtype)
+
+    def from_table(self, feat, coords, counts, occ) -> torch.Tensor:
+        """The block on the zero-backed voxel table (B, K, C) with its
+        occupancy map: sparse conv (f32 bias), BN, ReLU -> NCDHW indices
+        over NDHWC memory, as `forward` returns."""
+        conv = self.Conv_0
+        y = sparse_conv3x3(feat, coords, counts, occ, conv.weight, conv.bias,
+                           conv.stride[0], conv.padding[0])
+        return bn_relu(self.BatchNorm_0, y.permute(0, 4, 1, 2, 3), feat.dtype)
 
 
 def bn_relu(bn, y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -69,7 +82,23 @@ class MiddleLayers(nn.Module):
         x = dense.permute(0, 4, 1, 2, 3)
         for block in self.children():
             x = block(x)
-        b, _, _, h, w = x.shape
-        # c-major fold; NHWC memory for the channels-last RPN
-        return x.permute(0, 3, 4, 1, 2).reshape(b, h, w, -1).permute(
-            0, 3, 1, 2)
+        return _bev(x)
+
+    def from_table(self, feat: torch.Tensor, coords: torch.Tensor,
+                   counts: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+        """sparse1: voxel table feat (B, K, C) in the compute type, int32
+        coords (B, K, 3) and counts (B, K), and their occupancy map
+        (B, D, H, W) -> BEV (B, C' * D', H, W); block 1 from the table,
+        blocks 2-3 and the fold as `forward`."""
+        first, *rest = self.children()
+        x = first.from_table(feat, coords, counts, occ)
+        for block in rest:
+            x = block(x)
+        return _bev(x)
+
+
+def _bev(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, D', H, W) -> (B, C * D', H, W)"""
+    b, _, _, h, w = x.shape
+    # c-major fold; NHWC memory for the channels-last RPN
+    return x.permute(0, 3, 4, 1, 2).reshape(b, h, w, -1).permute(0, 3, 1, 2)

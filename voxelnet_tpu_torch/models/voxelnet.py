@@ -24,7 +24,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from voxelnet_tpu_torch.config import VoxelNetConfig, resolve_plan
+from voxelnet_tpu_torch.config import (VoxelNetConfig, middle_path,
+                                       resolve_plan)
+from voxelnet_tpu_torch.kernels.sparse_conv import occupancy_map
 from voxelnet_tpu_torch.models.bn import running_stats_frozen
 from voxelnet_tpu_torch.models.bn_fold import fold_bn_
 from voxelnet_tpu_torch.models.init import init_
@@ -54,19 +56,23 @@ class VoxelNet(nn.Module):
         self.rpn = RPN(cin=64 * depth_out(obj.depth),
                        block1_stride=config.rpn.block1_stride)
         self.remat = config.train.remat
+        self.middle_path = middle_path(config.data.middle_backend)
 
     def forward(self, features: torch.Tensor, coords: torch.Tensor,
                 counts: torch.Tensor):
         """features (B, K, T, 7) f32, coords (B, K, 3), counts (B, K) in
         the voxelizer's order -> (cls logits (B, H', W', 2) f32, reg
         (B, H', W', 14) f32): table VFE, dense grid (kernel forward, row
-        gather backward), Conv3D middle, RPN, in the compute dtype.
+        gather backward) and Conv3D middle, or under 'sparse1' the
+        occupancy map and block 1 from the table (kernel forward, gather
+        kernel backward) and Conv3D blocks 2-3, then the RPN, in the
+        compute dtype.
 
         With gradients on, `train.remat` (the JAX package's seams,
         `voxelnet_tpu/models/voxelnet.py:110-112, 157-159`) recomputes in
         backward what it does not keep: 'seams' keeps the voxelwise table
-        and the BEV map and recomputes the dense grid + middle and the RPN;
-        'full' recomputes the whole forward."""
+        and the BEV map and recomputes the dense grid (or occupancy map) +
+        middle and the RPN; 'full' recomputes the whole forward."""
         if self.remat == "full" and torch.is_grad_enabled():
             return _recomputed(self._forward, features, coords, counts)
         return self._forward(features, coords, counts)
@@ -81,6 +87,9 @@ class VoxelNet(nn.Module):
         return self.rpn(self._middle(voxelwise, coords, counts))
 
     def _middle(self, voxelwise, coords, counts):
+        if self.middle_path == "sparse1":
+            occ = occupancy_map(coords, counts, self.grid_dzyx)
+            return self.middle.from_table(voxelwise, coords, counts, occ)
         dense = scatter_to_dense_streamed(voxelwise, coords, counts,
                                           self.grid_dzyx)
         return self.middle(dense)
@@ -110,16 +119,25 @@ def build_model(config: VoxelNetConfig, seed: int = 0,
 
 
 def prepare_for_inference(model: VoxelNet, fold_bn: bool,
-                          dtype: torch.dtype) -> VoxelNet:
+                          dtype: torch.dtype,
+                          middle: str = "conv3d") -> VoxelNet:
     """A copy of `model` for the inference path: eval mode, middle/RPN BNs
     folded into their convs when `fold_bn`, conv weights cast once to the
     compute dtype (the BNs that stay run in f32, the VFE parameters stay
-    f32 for the kernel's fold), channels-last conv weights."""
+    f32 for the kernel's fold), channels-last conv weights. Under
+    middle='sparse1' block 1's weight is laid out in the product's order
+    instead (its `weight_matrix` is then a view) and its bias stays f32,
+    the type the sparse conv adds it in."""
     net = copy.deepcopy(model).eval()
     if fold_bn:
         fold_bn_(net)
+    table_conv = net.middle.ConvBlock3D_0.Conv_0
     for m in itertools.chain(net.middle.modules(), net.rpn.modules()):
-        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)):
+        if m is table_conv and middle == "sparse1":
+            w = m.weight.data.to(dtype)
+            m.weight.data = w.permute(1, 2, 3, 4, 0).contiguous().permute(
+                4, 0, 1, 2, 3)
+        elif isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)):
             fmt = (torch.channels_last_3d if m.weight.dim() == 5
                    else torch.channels_last)
             m.weight.data = m.weight.data.to(dtype).contiguous(
@@ -180,7 +198,7 @@ def make_inference_fn(config: VoxelNetConfig,
         if ref is None or ref() is not model or cache["versions"] != versions:
             cache.update(model=weakref.ref(model), versions=versions,
                          net=prepare_for_inference(model, plan.fold_bn,
-                                                   dtype))
+                                                   dtype, plan.middle))
         return cache["net"]
 
     def fn(model: VoxelNet, points, num_points, marks=None) -> Detections:
@@ -206,10 +224,16 @@ def make_inference_fn(config: VoxelNetConfig,
             voxelwise = net.feature_net(prep)
             coords, counts = prep.coords, prep.counts
         mark(marks, "vfe", device)
-        dense = scatter_to_dense_streamed(voxelwise, coords, counts,
-                                          obj.grid_size)
-        mark(marks, "dense", device)
-        bev = net.middle(dense.to(dtype))
+        if plan.middle == "sparse1":
+            occ = occupancy_map(coords, counts, obj.grid_size)
+            mark(marks, "dense", device)
+            bev = net.middle.from_table(voxelwise.to(dtype), coords, counts,
+                                        occ)
+        else:
+            dense = scatter_to_dense_streamed(voxelwise, coords, counts,
+                                              obj.grid_size)
+            mark(marks, "dense", device)
+            bev = net.middle(dense.to(dtype))
         mark(marks, "middle", device)
         cls_logits, reg = net.rpn(bev)
         mark(marks, "rpn", device)
