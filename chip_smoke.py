@@ -89,20 +89,27 @@ Phases, each fatal on failure:
      cli.train for one epoch on its output: finite metrics, a checkpoint,
      a label dump of every val frame, run_copy and dense_build launched;
  10. the slice of `data.middle_backend='sparse1'` (block 1 from the voxel
-     table): (a) both sparse-conv kernels against their plain versions at
-     Car B=2, fed by the fused VFE on the vendored frames (bit-equal, and
-     a W window equal to a slice of the full output), their times, plain
-     times (over 5 calls a window) and bounds, with cuDNN's Conv3d of the
-     dense grid (and the dense_build time beside it) as the forward's
-     one-call yardstick, one index_select as the gradient's, and the
-     occupancy map's and the product's times; (b) Car inference with
-     sparse1 through cli.predict and make_inference_fn: detections
-     against phase 4's conv3d run by score and box, vfe_fused and
-     sparse_conv launched and dense_build not, per-stage times and a
-     profiler table at B=1 and B=8, the tiny f32 grid on the card against
-     the CPU; (c) the train step with sparse1 at Car B=8: the loss falls,
-     run_copy and both sparse kernels launched and dense_build not, step
-     time, stage split and peak memory, one tiny f32 step on the card
+     table): (a) the occupancy kernel and both sparse-conv kernels
+     against their plain versions at Car B=2 and at B=8, the batch of
+     inference and of the train step (8 vendored frames, cycled), fed
+     by the fused VFE: the map bit-equal, the forward bit-equal in bf16
+     and f32, on the whole W and a W window (equal to a slice of the full
+     output), with its ReLU epilogue off and on (and the fused ReLU equal
+     to the ReLU of the unfused output), the gradient bit-equal; the
+     forward kernel's registers, shared memory and resident blocks; their
+     times, plain times (the sums over 5 calls a window), bounds and share
+     of the bound, with cuDNN's Conv3d of the dense grid at the same batch
+     (and the dense_build time beside it at B=2) as the forward's one-call
+     yardstick, one index_select as the gradient's, and the product's
+     time; (b) Car inference with sparse1 through cli.predict and
+     make_inference_fn: detections against phase 4's conv3d run by score
+     and box, vfe_fused, occupancy_map and sparse_conv launched and
+     dense_build not (block 1's ReLU in sparse_conv's store: no pass of
+     its own), per-stage times and a profiler table at B=1 and B=8, the
+     tiny f32 grid on the card against the CPU; (c) the train step with
+     sparse1 at Car B=8: the loss falls, run_copy, the occupancy kernel
+     and both sparse kernels launched and dense_build not, step time,
+     stage split and peak memory, one tiny f32 step on the card
      against the CPU; cli.train for one epoch (the Trainer) and two gloo
      ranks on cuda:0 with sparse1, their launches.
 The line before the last is {"kernels": [...]}; the last line is
@@ -157,11 +164,11 @@ TINY = {"object": {"x_max": 12.8, "y_min": -6.4, "y_max": 6.4},
         "data": {"max_points": 2048, "max_voxels": 256, "max_gt_boxes": 8},
         "train": {"compute_dtype": "float32"}, "rpn": {"score_thres": 0.0}}
 KERNELS = ("vfe_fused", "dense_build", "run_copy", "sparse_conv",
-           "sparse_conv_grad")
+           "sparse_conv_grad", "occupancy_map")
 # the CUDA sources under voxelnet_tpu_torch/csrc/, and the source of each
 # kernel not named after its own
 SOURCES = ("vfe_fused", "dense_build", "run_copy", "sparse_conv")
-SOURCE = {"sparse_conv_grad": "sparse_conv"}
+SOURCE = {"sparse_conv_grad": "sparse_conv", "occupancy_map": "sparse_conv"}
 REPLACES = {
     "vfe_fused": "voxelnet_tpu/kernels/vfe_fused.py:52",
     "dense_build": "voxelnet_tpu/kernels/dense_build.py:62",
@@ -172,6 +179,9 @@ REPLACES = {
                    "scatter-adds)",
     "sparse_conv_grad": "voxelnet_tpu/models/sparse_conv.py:92-108 (the "
                         "gather of their autodiff)",
+    "occupancy_map": "voxelnet_tpu/models/sparse_conv.py:92-108 (none: the "
+                     "lookup the output-stationary sum needs; JAX scatters "
+                     "instead)",
 }
 SPARSE1 = {"data": {"middle_backend": "sparse1"}}
 # NVIDIA H100 SXM data sheet, dense rates: HBM3 bandwidth, and the peak
@@ -201,16 +211,20 @@ HOST_VOX_REPS = 5
 CAR_PARAMS = 6_809_392
 # the PR whose design each kernel runs
 DESIGN_PR = {"vfe_fused": 3, "dense_build": 1, "run_copy": 2,
-             "sparse_conv": 8, "sparse_conv_grad": 8}
+             "sparse_conv": 9, "sparse_conv_grad": 8, "occupancy_map": 9}
 # timed shapes beside each kernel's Car B=2 one: the fused VFE at the
 # inference B=8 batch; the dense grid in f32 (train) and its backward (a
-# torch gather, no kernel of the port); beside sparse_conv, the torch steps
-# of its path (the occupancy map and the product) and the dense grid that
-# its yardstick reads
+# torch gather, no kernel of the port); sparse_conv in f32, with its ReLU
+# epilogue and at the inference B=8 batch (bf16 and f32), then the torch
+# step of its path (the product) and the dense grid that its yardstick
+# reads; the gradient and the occupancy map at B=8
 EXTRA_SHAPES = {"vfe_fused": ("vfe_fused_b8",),
                 "dense_build": ("dense_build_f32", "dense_build_grad"),
-                "sparse_conv": ("sparse_conv_f32", "sparse_conv_occupancy",
-                                "sparse_conv_product", "sparse_conv_grid")}
+                "sparse_conv": ("sparse_conv_f32", "sparse_conv_relu",
+                                "sparse_conv_b8", "sparse_conv_b8_f32",
+                                "sparse_conv_product", "sparse_conv_grid"),
+                "sparse_conv_grad": ("sparse_conv_grad_b8",),
+                "occupancy_map": ("occupancy_map_b8",)}
 
 
 class CheckFailed(RuntimeError):
@@ -518,6 +532,7 @@ def check_detections(det, config, batch):
 def reset_launches():
     vfe_fused.launches = dense_build.launches = run_copy.launches = 0
     sparse_conv.launches = sparse_conv.grad_launches = 0
+    sparse_conv.occupancy_launches = 0
 
 
 def launch_counts() -> dict:
@@ -525,7 +540,8 @@ def launch_counts() -> dict:
             "dense_build": dense_build.launches,
             "run_copy": run_copy.launches,
             "sparse_conv": sparse_conv.launches,
-            "sparse_conv_grad": sparse_conv.grad_launches}
+            "sparse_conv_grad": sparse_conv.grad_launches,
+            "occupancy_map": sparse_conv.occupancy_launches}
 
 
 def check_launched(what: str, launches: dict, ran=(), idle=()) -> None:
@@ -553,7 +569,7 @@ def phase_main_path(model, frames, device):
     print(f"  valid detections per frame: score_thres 0.96 -> "
           f"{results[0.96]}, 0.0 -> {results[0.0]}; launches {launches}")
     check_launched("inference path", launches, ("vfe_fused", "dense_build"),
-                   ("sparse_conv", "sparse_conv_grad"))
+                   ("sparse_conv", "sparse_conv_grad", "occupancy_map"))
     check(sum(results[0.0]) > 0, "no detections at score_thres 0.0")
     return launches, dets[0.0]
 
@@ -693,7 +709,8 @@ def finite_metrics(metrics) -> dict:
 
 def phase_train(frames, device, card, seed, overrides=None, batch_size=2,
                 ran=("run_copy", "dense_build"),
-                idle=("sparse_conv", "sparse_conv_grad"), label="5"):
+                idle=("sparse_conv", "sparse_conv_grad", "occupancy_map"),
+                label="5"):
     """make_train_step at full Car width on one repeated batch."""
     print(f"[{label}] train path: make_train_step, Car, bf16, B={batch_size}, "
           f"{TRAIN_STEPS} steps on one batch, overrides {overrides or {}}")
@@ -1679,130 +1696,210 @@ def vendored_table(config, model, frames, device, batch: int):
     return feat, prep.coords, prep.counts
 
 
+def sparse_block1_inputs(config, model, frames, device, batch: int):
+    """Block 1's inputs in sparse1 inference at `batch` vendored frames:
+    (feat, coords, counts, occ, vals (B, K, 27, Cout) bf16, its product's
+    weight matrix, f32 bias)."""
+    conv = model.middle.ConvBlock3D_0.Conv_0
+    feat, coords, counts = vendored_table(config, model, frames, device,
+                                          batch)
+    wmat = weight_matrix(conv.weight.to(torch.bfloat16))
+    occ = sparse_conv.occupancy_map(coords, counts,
+                                    tuple(config.object.grid_size))
+    vals = (feat @ wmat).view(*feat.shape[:2], 27, -1)
+    return feat, coords, counts, occ, vals, wmat, conv.bias.float()
+
+
+def check_sparse_conv(tag, vals, coords, counts, occ, bias, grid, stride,
+                      pad) -> float:
+    """The kernel torch.equal to sparse_conv_plain in bf16 and f32, on the
+    whole W and SPARSE_WINDOW, with the ReLU off and on; the fused ReLU
+    equal to the ReLU of the unfused output, the window to the full
+    output's columns -> the largest error."""
+    x0, wloc = SPARSE_WINDOW
+    err = 0.0
+    for v in (vals, vals.float()):
+        full = {}
+        for window in (None, SPARSE_WINDOW):
+            for relu in (False, True):
+                got = sparse_conv.sparse_conv(v, coords, counts, occ, bias,
+                                              stride, pad, window, relu)
+                want = sparse_conv.sparse_conv_plain(
+                    v, coords, counts, bias, grid, stride, pad, window, relu)
+                torch.cuda.synchronize()
+                err = max(err, float((got.float() - want.float()).abs()
+                                     .max()))
+                check(torch.equal(got, want),
+                      f"sparse_conv {tag} {v.dtype} window {window} relu "
+                      f"{relu} differs from plain")
+                if window is None:
+                    full[relu] = got
+                else:
+                    check(torch.equal(got, full[relu][:, :, :,
+                                                      x0:x0 + wloc]),
+                          f"sparse_conv {tag} {v.dtype} relu {relu}: the "
+                          "window differs from the full output's columns")
+            print(f"  sparse_conv {tag} {v.dtype} window {window}: "
+                  f"bit-equal over {got.numel()} elements, relu off and on")
+        check(torch.equal(full[True], torch.relu(full[False])),
+              f"sparse_conv {tag} {v.dtype}: the fused ReLU differs from "
+              "relu(plain)")
+    return err
+
+
 def phase_sparse_kernels(config, model, frames, device, card):
-    """(a) Both sparse-conv kernels against their plain versions at Car
-    B=2 -> (times, errs, bounds) in phase 3's form."""
-    print("[10] sparse1 (a): sparse_conv and its gradient against their "
-          "plain versions (Car, B=2, fused VFE on the vendored frames)")
+    """(a) The occupancy kernel and both sparse-conv kernels against their
+    plain versions at Car B=2 and at B=8, the batch of inference and of
+    the train step -> (times, errs, bounds) in phase 3's form."""
+    print("[10] sparse1 (a): occupancy_map, sparse_conv and its gradient "
+          "against their plain versions (Car, B=2 and B=8, fused VFE on the "
+          "vendored frames)")
     grid = tuple(config.object.grid_size)
     D, H, W = grid
     n_cells = D * H * W
     conv = model.middle.ConvBlock3D_0.Conv_0
     stride, pad = conv.stride[0], conv.padding[0]
-    x0, wloc = SPARSE_WINDOW
-    with torch.inference_mode():
-        feat, coords, counts = vendored_table(config, model, frames, device,
-                                              2)
-        B, K, cin = feat.shape
-        wmat = weight_matrix(conv.weight.to(torch.bfloat16))
-        bias = conv.bias.float()
-        occ = sparse_conv.occupancy_map(coords, counts, grid)
-        vals = (feat @ wmat).view(B, K, 27, -1)
-        vals32 = vals.float()
-        cout = vals.shape[-1]
-
-        def fwd(v):
-            return sparse_conv.sparse_conv(v, coords, counts, occ, bias,
-                                           stride, pad)
-
-        def fwd_plain(v):
-            return sparse_conv.sparse_conv_plain(v, coords, counts, bias,
-                                                 grid, stride, pad)
-
-        err = 0.0
-        for v in (vals, vals32):
-            got, want = fwd(v), fwd_plain(v)
+    info = {str(t).removeprefix("torch."): sparse_conv.kernel_info(t)
+            for t in (torch.bfloat16, torch.float32)}
+    print(f"  sparse_conv_fwd_kernel: {info}")
+    times, errs, bounds = {}, {}, {}
+    for B, tag in ((2, ""), (8, "_b8")):
+        with torch.inference_mode():
+            feat, coords, counts, occ, vals, wmat, bias = \
+                sparse_block1_inputs(config, model, frames, device, B)
+            cin, cout = feat.shape[-1], vals.shape[-1]
+            occ_plain = sparse_conv.occupancy_map_plain(coords, counts, grid)
             torch.cuda.synchronize()
-            err = max(err, float((got.float() - want.float()).abs().max()))
-            check(torch.equal(got, want),
-                  f"sparse_conv {v.dtype} differs from plain")
-            print(f"  sparse_conv {v.dtype}: bit-equal over {got.numel()} "
-                  "elements")
-        got = fwd(vals)
-        win = sparse_conv.sparse_conv(vals, coords, counts, occ, bias,
-                                      stride, pad, SPARSE_WINDOW)
-        torch.cuda.synchronize()
-        check(torch.equal(win, got[:, :, :, x0:x0 + wloc]),
-              "sparse_conv's w_window differs from the full output's slice")
-        print(f"  sparse_conv w_window={SPARSE_WINDOW}: equal to the full "
-              "output's columns")
-        g = torch.Generator(device=device).manual_seed(SEED)
-        cot = torch.randn(tuple(got.shape), generator=g, device=device).to(
-            torch.bfloat16)
-        dgot = sparse_conv.sparse_conv_grad(cot, coords, counts, stride, pad)
-        dwant = sparse_conv.sparse_conv_grad_plain(cot, coords, counts,
-                                                   stride, pad)
-        torch.cuda.synchronize()
-        check(torch.equal(dgot, dwant), "sparse_conv_grad differs from plain")
-        print(f"  sparse_conv_grad: bit-equal over {dgot.numel()} elements")
-        errs = {"sparse_conv": err, "sparse_conv_grad": float(
-            (dgot.float() - dwant.float()).abs().max())}
+            check(torch.equal(occ, occ_plain),
+                  f"occupancy_map B={B} differs from plain")
+            print(f"  occupancy_map B={B}: bit-equal over {occ.numel()} "
+                  "cells")
+            err = check_sparse_conv(f"B={B}", vals, coords, counts, occ, bias,
+                                    grid, stride, pad)
+            if not tag:
+                errs.update(sparse_conv=err, occupancy_map=0.0)
+            vals32 = vals.float()
 
-        # the taps that reach the output: the rows of vals the forward
-        # reads, the rows of dout the gradient gathers
-        sites = sparse_conv.tap_sites(coords, counts, stride, pad,
-                                      tuple(got.shape[1:4]))
-        hits = int((sites < got[..., 0].numel()).sum())
-        live = int((counts > 0).sum())
-        ids = torch.where(counts > 0, (coords[..., 0] * H + coords[..., 1])
-                          * W + coords[..., 2], n_cells).to(torch.int32)
-        dense = dense_build.dense_build(feat, ids, n_cells).view(
-            B, D, H, W, cin).permute(0, 4, 1, 2, 3)
-        wcl = conv.weight.to(torch.bfloat16).contiguous(
-            memory_format=torch.channels_last_3d)
-        b16 = conv.bias.to(torch.bfloat16)
-        flat = torch.cat([cot.reshape(-1, cout), cot.new_zeros((1, cout))])
-        rows = sites.reshape(-1)
-        # name -> (kernel, plain version, one torch call or None); the
-        # plain versions (~14 ms a call) over 5 calls a window
-        times = {
-            "sparse_conv": (
-                timed(lambda: fwd(vals)), timed(lambda: fwd_plain(vals), 5),
-                timed(lambda: torch.nn.functional.conv3d(
-                    dense, wcl, b16, conv.stride, conv.padding))),
-            "sparse_conv_f32": (timed(lambda: fwd(vals32)),
-                                timed(lambda: fwd_plain(vals32), 5), None),
-            "sparse_conv_occupancy": (timed(lambda: sparse_conv.occupancy_map(
-                coords, counts, grid)), None, None),
-            "sparse_conv_product": (timed(lambda: feat @ wmat), None, None),
-            "sparse_conv_grid": (timed(lambda: dense_build.dense_build(
-                feat, ids, n_cells)), None, None),
-            "sparse_conv_grad": (
+            def fwd(v, relu=False):
+                return sparse_conv.sparse_conv(v, coords, counts, occ, bias,
+                                               stride, pad, relu=relu)
+
+            def fwd_plain(v):
+                return sparse_conv.sparse_conv_plain(v, coords, counts, bias,
+                                                     grid, stride, pad)
+
+            got = fwd(vals)
+            ids = torch.where(counts > 0, (coords[..., 0] * H
+                                           + coords[..., 1]) * W
+                              + coords[..., 2], n_cells).to(torch.int32)
+            dense = dense_build.dense_build(feat, ids, n_cells).view(
+                B, D, H, W, cin).permute(0, 4, 1, 2, 3)
+            wcl = conv.weight.to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last_3d)
+            b16 = conv.bias.to(torch.bfloat16)
+            # name -> (kernel, plain version, one torch call or None); the
+            # plain sums (~14 ms a call at B=2) over 5 calls a window
+            times.update({
+                f"sparse_conv{tag}": (
+                    timed(lambda: fwd(vals)),
+                    timed(lambda: fwd_plain(vals), 5),
+                    timed(lambda: torch.nn.functional.conv3d(
+                        dense, wcl, b16, conv.stride, conv.padding))),
+                f"sparse_conv{tag}_f32": (
+                    timed(lambda: fwd(vals32)),
+                    timed(lambda: fwd_plain(vals32), 5), None),
+                f"occupancy_map{tag}": (
+                    timed(lambda: sparse_conv.occupancy_map(coords, counts,
+                                                            grid)),
+                    timed(lambda: sparse_conv.occupancy_map_plain(
+                        coords, counts, grid)), None),
+            })
+            # the taps that reach the output: the rows of vals the forward
+            # reads, the rows of dout the gradient gathers
+            sites = sparse_conv.tap_sites(coords, counts, stride, pad,
+                                          tuple(got.shape[1:4]))
+            hits = int((sites < got[..., 0].numel()).sum())
+            live = int((counts > 0).sum())
+            out_elems = got.numel()
+            print(f"  B={B}: live voxels {live}, taps that reach the output "
+                  f"{hits}")
+            bounds.update({
+                # the rows the taps read, the map, the bias, the output
+                # written; one f32 add a tap and channel
+                f"sparse_conv{tag}": bound(hits * cout * 2
+                                           + nbytes(occ, bias)
+                                           + out_elems * 2, hits * cout),
+                f"sparse_conv{tag}_f32": bound(hits * cout * 4
+                                               + nbytes(occ, bias)
+                                               + out_elems * 4, hits * cout),
+                f"occupancy_map{tag}": bound(nbytes(coords, counts, occ)),
+            })
+            g = torch.Generator(device=device).manual_seed(SEED)
+            cot = torch.randn(tuple(got.shape), generator=g,
+                              device=device).to(torch.bfloat16)
+            dgot = sparse_conv.sparse_conv_grad(cot, coords, counts, stride,
+                                                pad)
+            dwant = sparse_conv.sparse_conv_grad_plain(cot, coords, counts,
+                                                       stride, pad)
+            torch.cuda.synchronize()
+            check(torch.equal(dgot, dwant),
+                  f"sparse_conv_grad B={B} differs from plain")
+            print(f"  sparse_conv_grad B={B}: bit-equal over {dgot.numel()} "
+                  "elements")
+            if not tag:
+                errs["sparse_conv_grad"] = float(
+                    (dgot.float() - dwant.float()).abs().max())
+            del dwant
+            flat = torch.cat([cot.reshape(-1, cout),
+                              cot.new_zeros((1, cout))])
+            rows = sites.reshape(-1)
+            times[f"sparse_conv_grad{tag}"] = (
                 timed(lambda: sparse_conv.sparse_conv_grad(
                     cot, coords, counts, stride, pad)),
                 timed(lambda: sparse_conv.sparse_conv_grad_plain(
                     cot, coords, counts, stride, pad), 5),
-                timed(lambda: flat.index_select(0, rows))),
-        }
+                timed(lambda: flat.index_select(0, rows)))
+            # the rows of dout the taps gather, the table, all of dvals
+            # written
+            bounds[f"sparse_conv_grad{tag}"] = bound(
+                hits * cout * 2 + nbytes(coords, counts) + dgot.numel() * 2)
+            del cot, dgot, flat
+            if tag:
+                del dense
+                continue
+            times["sparse_conv_relu"] = (timed(lambda: fwd(vals, True)),
+                                         None, None)
+            bounds["sparse_conv_relu"] = bounds["sparse_conv"]
+            times.update({
+                "sparse_conv_product": (timed(lambda: feat @ wmat), None,
+                                        None),
+                "sparse_conv_grid": (timed(lambda: dense_build.dense_build(
+                    feat, ids, n_cells)), None, None),
+            })
+            bounds.update({
+                # the live rows' product on the tensor cores, all of vals
+                # written
+                "sparse_conv_product": bound(
+                    live * cin * 2 + nbytes(wmat, vals),
+                    2 * live * cin * 27 * cout, torch.bfloat16),
+                "sparse_conv_grid": bound(nbytes(feat, ids)
+                                          + B * n_cells * cin * 2),
+            })
+            del dense
     for name, parts in times.items():
         print(f"  {name}: " + ", ".join(
             f"{what} {t['ms']} ms (device {t['device_ms']} ms)"
             for what, t in zip(("kernel", "plain", "one torch call"), parts)
             if t is not None) + f" [{card}]")
     print("  one torch calls: sparse_conv cuDNN's Conv3d of block 1 on the "
-          "dense grid (built by dense_build, sparse_conv_grid), "
-          "sparse_conv_grad one index_select of the rows")
-    out_elems = got.numel()
-    bounds = {
-        # the rows the taps read, the map, the bias, the output written;
-        # one f32 add a tap and channel
-        "sparse_conv": bound(hits * cout * 2 + nbytes(occ, bias)
-                             + out_elems * 2, hits * cout),
-        "sparse_conv_f32": bound(hits * cout * 4 + nbytes(occ, bias)
-                                 + out_elems * 4, hits * cout),
-        "sparse_conv_occupancy": bound(nbytes(coords, counts, occ)),
-        # the live rows' product on the tensor cores, all of vals written
-        "sparse_conv_product": bound(
-            live * cin * 2 + nbytes(wmat, vals), 2 * live * cin * 27 * cout,
-            torch.bfloat16),
-        "sparse_conv_grid": bound(nbytes(feat, ids) + B * n_cells * cin * 2),
-        "sparse_conv_grad": bound(hits * cout * 2 + nbytes(coords, counts)
-                                  + dgot.numel() * 2),
-    }
-    print(f"  live voxels {live}, taps that reach the output {hits}")
+          "dense grid at the same batch (built by dense_build, "
+          "sparse_conv_grid at B=2), sparse_conv_grad one index_select of "
+          "the rows")
     for name, (ms, by) in bounds.items():
-        print(f"  {name}: bound {ms} ms ({by}) at these inputs")
-    return times, errs, bounds
+        share = ms / times[name][0]["device_ms"]
+        print(f"  {name}: bound {ms} ms ({by}) at these inputs, "
+              f"{share:.1%} of it reached (profiler time)")
+    return times, errs, bounds, info
 
 
 def match_detections(got, want) -> dict:
@@ -1867,7 +1964,8 @@ def phase_sparse_inference(model, frames, device, card, conv3d_dets,
     torch.cuda.synchronize()
     launches = launch_counts()
     print(f"  cli.predict --cfg: {out.splitlines()[0]}; launches {launches}")
-    check_launched("sparse1 inference", launches, ("vfe_fused", "sparse_conv"),
+    check_launched("sparse1 inference", launches,
+                   ("vfe_fused", "occupancy_map", "sparse_conv"),
                    ("dense_build", "sparse_conv_grad"))
     m = match_detections(dets[0.0], conv3d_dets)
     print(f"  against phase 4's conv3d detections at score_thres 0 (score "
@@ -1886,7 +1984,8 @@ def phase_sparse_train(frames, device, card, seed, tmp):
     card against the CPU, step times; cli.train (the Trainer) for one
     epoch and two gloo ranks -> the launches of the step, the trainer and
     rank 0."""
-    ran, idle = ("run_copy", "sparse_conv", "sparse_conv_grad"), (
+    ran, idle = ("run_copy", "occupancy_map", "sparse_conv",
+                 "sparse_conv_grad"), (
         "dense_build",)
     launches = phase_train(frames, device, card, seed, SPARSE1, batch_size=8,
                            ran=ran, idle=idle, label="10c")
@@ -1938,6 +2037,9 @@ def kernel_entry(name, times, errs, bounds, launches, by_path) -> dict:
         if p is not None:
             out.update({f"{prefix}plain_ms": p["ms"],
                         f"{prefix}plain_device_ms": p["device_ms"]})
+        if lib is not None and prefix:
+            out.update({f"{prefix}library_ms": lib["ms"],
+                        f"{prefix}library_device_ms": lib["device_ms"]})
         out[f"{prefix}bound_ms"], out[f"{prefix}bound_by"] = bounds.get(
             key, (None, None))
         return out
@@ -2020,9 +2122,10 @@ def main(argv=None):
         print(f"[9] phase 9 took {time.perf_counter() - t9} s")
         took = [time.perf_counter()]
         model = make_model(config, device)
-        for part, more in zip((times, errs, bounds), phase_sparse_kernels(
-                config, model, frames, device, card)):
-            part.update(more)
+        *more, sparse_info = phase_sparse_kernels(config, model, frames,
+                                                  device, card)
+        for part, extra in zip((times, errs, bounds), more):
+            part.update(extra)
         took.append(time.perf_counter())
         sparse_infer = phase_sparse_inference(model, frames, device, card,
                                               conv3d_dets, tmp)
@@ -2037,13 +2140,14 @@ def main(argv=None):
 
     # each kernel's count on the path of the slice that brought it: the
     # fused VFE runs only for inference, dense_build and run_copy on the
-    # train step; sparse_conv on sparse1's inference, its gradient on
-    # sparse1's train step
+    # train step; sparse_conv and occupancy_map on sparse1's inference,
+    # the gradient on sparse1's train step
     launches = {"vfe_fused": infer_launches["vfe_fused"],
                 "dense_build": train_launches["dense_build"],
                 "run_copy": train_launches["run_copy"],
                 "sparse_conv": sparse_infer["sparse_conv"],
-                "sparse_conv_grad": sparse_train["sparse_conv_grad"]}
+                "sparse_conv_grad": sparse_train["sparse_conv_grad"],
+                "occupancy_map": sparse_infer["occupancy_map"]}
     print(card)
     by_path = {"inference": infer_launches, "train": train_launches,
                "trainer": trainer_launches,
@@ -2062,6 +2166,7 @@ def main(argv=None):
     entries = [kernel_entry(name, times, errs, bounds, launches, by_path)
                for name in KERNELS]
     entries[KERNELS.index("vfe_fused")].update(vfe_info)
+    entries[KERNELS.index("sparse_conv")].update(kernel_info=sparse_info)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

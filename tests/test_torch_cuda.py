@@ -7,6 +7,10 @@ which tests/conftest.py imports, so run them there with
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -251,6 +255,8 @@ def test_sparse_conv_kernels_match_plain(cuda_device, dtype, stride_d,
     got = sparse_conv.sparse_conv(vals, c, n, occ, bias, stride_d, pad_d)
     win = sparse_conv.sparse_conv(vals, c, n, occ, bias, stride_d, pad_d,
                                   (7, 20))
+    fused = sparse_conv.sparse_conv(vals, c, n, occ, bias, stride_d, pad_d,
+                                    relu=True)
     dout = torch.from_numpy(rng.normal(0, 1, tuple(got.shape)).astype(
         np.float32)).to(cuda_device, dtype)
     dvals = sparse_conv.sparse_conv_grad(dout, c, n, stride_d, pad_d)
@@ -258,16 +264,112 @@ def test_sparse_conv_kernels_match_plain(cuda_device, dtype, stride_d,
                                         n, stride_d, pad_d, 7)
     torch.cuda.synchronize()
     assert (sparse_conv.launches, sparse_conv.grad_launches) == (
-        before[0] + 2, before[1] + 2)
+        before[0] + 3, before[1] + 2)
     args = (c.cpu(), n.cpu())
     assert torch.equal(got.cpu(), sparse_conv.sparse_conv_plain(
         vals.cpu(), *args, bias.cpu(), grid, stride_d, pad_d))
     assert torch.equal(win.cpu(), got[:, :, :, 7:27].cpu())
+    assert torch.equal(fused, torch.relu(got))
     assert torch.equal(dvals.cpu(), sparse_conv.sparse_conv_grad_plain(
         dout.cpu(), *args, stride_d, pad_d))
     assert torch.equal(dwin.cpu(), sparse_conv.sparse_conv_grad_plain(
         dout[:, :, :, 7:27].cpu(), *args, stride_d, pad_d, 7))
     assert (got[2] == bias.to(dtype)).all() and dvals[1, K // 4:].eq(0).all()
+
+
+# (grid, K, x windows) at the forward's tile edges (8 rows x 32 sites):
+# rows not a multiple of 8, widths and windows below and not a multiple of
+# 32, windows at unaligned x0, and a grid every site of which a voxel
+# reaches (frames 0 and 1 full), so no site takes the bias-only path
+TILE_EDGES = {
+    "ragged": ((6, 13, 45), 300, (None, (5, 23), (30, 15))),
+    "narrow": ((5, 8, 20), 200, (None, (3, 11), (19, 1))),
+    "full": ((3, 3, 5), 45, (None, (1, 3))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TILE_EDGES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("stride_d,pad_d", [(2, 1), (1, 0)])
+def test_sparse_conv_tile_edges_match_plain(cuda_device, dtype, stride_d,
+                                            pad_d, case):
+    """The forward kernel bit-equal to its plain version at its tile edges,
+    with the ReLU off and on; the all-padding frame 2 is the bias (ReLU'd)
+    everywhere."""
+    grid, K, windows = TILE_EDGES[case]
+    rng = np.random.default_rng(len(case) + stride_d)
+    D, H, W = grid
+    coords, counts = _sparse_table(rng, grid, K)
+    if case == "full":
+        lin = np.arange(K)
+        for b in (0, 1):
+            coords[b] = np.stack([lin // (H * W), lin // W % H, lin % W], 1)
+            counts[b] = 1
+    c = torch.from_numpy(coords).to(cuda_device)
+    n = torch.from_numpy(counts).to(cuda_device)
+    occ = sparse_conv.occupancy_map(c, n, grid)
+    vals = torch.from_numpy(rng.normal(0, 1, (3, K, 27, 64)).astype(
+        np.float32)).to(cuda_device, dtype)
+    bias = torch.from_numpy(rng.normal(0, 1, 64).astype(np.float32)).to(
+        cuda_device)
+    for window in windows:
+        for relu in (False, True):
+            got = sparse_conv.sparse_conv(vals, c, n, occ, bias, stride_d,
+                                          pad_d, window, relu)
+            want = sparse_conv.sparse_conv_plain(
+                vals.cpu(), c.cpu(), n.cpu(), bias.cpu(), grid, stride_d,
+                pad_d, window, relu)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (window, relu)
+            empty = bias.to(dtype)
+            assert (got[2] == (torch.relu(empty) if relu else empty)).all()
+
+
+def test_occupancy_kernel_matches_plain(cuda_device):
+    """The occupancy kernel bit-equal to occupancy_map_plain, padding rows
+    carrying garbage coords in and out of the grid; one launch a call."""
+    rng = np.random.default_rng(5)
+    for grid, K in (((10, 40, 36), 512), ((3, 3, 5), 45), ((2, 3, 4), 24)):
+        coords, counts = _sparse_table(rng, grid, K)
+        c = torch.from_numpy(coords).to(cuda_device)
+        n = torch.from_numpy(counts).to(cuda_device)
+        before = sparse_conv.occupancy_launches
+        got = sparse_conv.occupancy_map(c, n, grid)
+        torch.cuda.synchronize()
+        assert sparse_conv.occupancy_launches == before + 1
+        assert got.shape == (3, *grid) and got.dtype == torch.int32
+        assert torch.equal(got.cpu(), sparse_conv.occupancy_map_plain(
+            c.cpu(), n.cpu(), grid))
+
+
+# a live voxel at y = H of a (4, 5, 6) grid, whose flat index lands inside
+# the grid; the call's synchronisation must raise a RuntimeError (exit 3)
+_OUTSIDE_THE_GRID = """
+import torch
+from voxelnet_tpu_torch.kernels import sparse_conv
+c = torch.zeros(1, 8, 3, dtype=torch.int32, device="cuda")
+c[0, 0, 1] = 5
+n = torch.ones(1, 8, dtype=torch.int32, device="cuda")
+try:
+    sparse_conv.occupancy_map(c, n, (4, 5, 6))
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised", type(e).__name__, e)
+    raise SystemExit(3)
+"""
+
+
+def test_occupancy_kernel_traps_on_live_voxels_outside_the_grid(
+        cuda_device):
+    """The kernel's side of occupancy_map_plain's ValueError: the trap
+    leaves the process's CUDA context unusable, so it runs in a process of
+    its own."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _OUTSIDE_THE_GRID],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 3, proc.stderr[-2000:]
+    assert "raised" in proc.stdout
 
 
 def test_sparse_conv_wrappers_refuse_what_the_kernels_do_not_take(
@@ -286,10 +388,18 @@ def test_sparse_conv_wrappers_refuse_what_the_kernels_do_not_take(
     with pytest.raises(ValueError, match="16-byte chunks"):
         sparse_conv.sparse_conv(vals[..., :6].contiguous(), c, n, occ,
                                 bias[:6], 2, 1)
+    with pytest.raises(ValueError, match="16-byte chunks"):
+        # 3 chunks of 16 bytes a site, which do not divide 256
+        sparse_conv.sparse_conv(vals[..., :24].bfloat16(), c, n, occ,
+                                bias[:24], 2, 1)
     with pytest.raises(ValueError, match="coords must be torch.int32"):
         sparse_conv.sparse_conv_grad(torch.zeros(1, 2, 5, 6, 64,
                                                  device=cuda_device),
                                      c.long(), n, 2, 1)
+    with pytest.raises(ValueError, match="coords must be torch.int32"):
+        sparse_conv.occupancy_map(c.long(), n, (4, 5, 6))
+    with pytest.raises(ValueError, match="CUDA"):
+        sparse_conv.occupancy_map(c, n.cpu(), (4, 5, 6))
 
 
 def test_sparse1_inference_on_card_matches_cpu(cuda_device):

@@ -329,3 +329,19 @@ def test_one_parameter_tree_for_both_paths():
     dense.load_state_dict(sparse.state_dict())
     # and a JAX sparse1 tree through the weight bridge
     torch_model(tcfg, jax_variables(jcfg, seed=1))
+
+
+@pytest.mark.parametrize("axis,value", [(0, -1), (1, H), (2, W)],
+                         ids=["z_below", "y_past", "x_past"])
+def test_occupancy_map_refuses_live_voxels_outside_the_grid(axis, value):
+    """A live row outside the grid raises, also where its flat index lands
+    inside the grid (y or x past its axis); a padding row there does not."""
+    _, coords, counts = _table(seed=3)
+    coords[1, 0, axis] = value
+    with pytest.raises(ValueError, match="outside the grid"):
+        occupancy_map(torch.from_numpy(coords), torch.from_numpy(counts),
+                      (D, H, W))
+    counts[1, 0] = 0
+    occ = occupancy_map(torch.from_numpy(coords), torch.from_numpy(counts),
+                        (D, H, W))
+    assert int((occ[1] >= 0).sum()) == int((counts[1] > 0).sum())

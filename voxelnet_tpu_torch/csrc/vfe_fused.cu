@@ -61,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_info.cuh"
+
 namespace {
 
 constexpr int kTileV = 32;       // voxel slots per tile: one per lane
@@ -455,18 +457,7 @@ extern "C" int vfe_fused_launch(const void* planar, const void* run_start,
   return (int)cudaGetLastError();
 }
 
-// info[0..3] = registers per thread, local (spill) bytes per thread, static
-// shared bytes per block, resident blocks per SM
+// info[0..3]: csrc/kernel_info.cuh
 extern "C" int vfe_fused_info(int* info) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, vfe_fused_kernel);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vfe_fused_kernel,
-                                                      kThreads, 0);
-  info[0] = attr.numRegs;
-  info[1] = (int)attr.localSizeBytes;
-  info[2] = (int)attr.sharedSizeBytes;
-  info[3] = per_sm;
-  return (int)err;
+  return kernel_attributes(vfe_fused_kernel, kThreads, info);
 }

@@ -2,8 +2,8 @@
 shared libraries with a plain C interface, and load them with ctypes.
 
 A library is built at first use into `voxelnet_tpu_torch/_build/`, named
-by a hash of its source and flags, so an edited source never loads a stale
-build. Every exported launcher takes device pointers and the CUDA stream as
+by a hash of its source, the shared headers (`csrc/*.cuh`) and the flags,
+so an edited source never loads a stale build. Every exported launcher takes device pointers and the CUDA stream as
 `void*` and returns `cudaGetLastError()` after its launch.
 """
 
@@ -40,10 +40,14 @@ def _nvcc() -> str:
 
 
 def _paths(name: str) -> tuple[str, str]:
-    """-> (source, library path named by the source's and flags' hash)."""
+    """-> (source, library path named by the hash of the source, the
+    shared headers and the flags)."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (src, *(os.path.join(CSRC, h) for h in headers)):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR,
                              f"lib{name}-{digest.hexdigest()[:16]}.so")
 
@@ -89,6 +93,17 @@ def load(name: str, argtypes: dict[str, list]) -> ctypes.CDLL:
         getattr(lib, fn).restype = ctypes.c_int
     _loaded[name] = lib
     return lib
+
+
+def kernel_info(lib: ctypes.CDLL, fn: str, *args: int) -> dict:
+    """A built kernel's registers per thread, local (spill) bytes per
+    thread, static shared bytes per block and resident blocks per SM on the
+    current card, from the library's `fn(int* info, *args)` entry
+    (csrc/kernel_info.cuh)."""
+    info = (ctypes.c_int * 4)()
+    check(getattr(lib, fn)(info, *args), fn)
+    return dict(zip(("registers", "local_bytes", "shared_bytes",
+                     "blocks_per_sm"), info))
 
 
 def check(err: int, what: str) -> None:

@@ -115,11 +115,6 @@ def vfe_fused(planar: torch.Tensor, run_start: torch.Tensor,
 
 
 def kernel_info() -> dict:
-    """The built kernel's registers per thread, local (spill) bytes per
-    thread, static shared bytes per block and resident blocks per SM on the
-    current card."""
-    lib = _build.load("vfe_fused", _ARGTYPES)
-    info = (ctypes.c_int * 4)()
-    _build.check(lib.vfe_fused_info(info), "vfe_fused_info")
-    return dict(zip(("registers", "local_bytes", "shared_bytes",
-                     "blocks_per_sm"), info))
+    """`_build.kernel_info` of the fused kernel."""
+    return _build.kernel_info(_build.load("vfe_fused", _ARGTYPES),
+                              "vfe_fused_info")

@@ -48,11 +48,15 @@ class ConvBlock3D(nn.Module):
     def from_table(self, feat, coords, counts, occ) -> torch.Tensor:
         """The block on the zero-backed voxel table (B, K, C) with its
         occupancy map: sparse conv (f32 bias), BN, ReLU -> NCDHW indices
-        over NDHWC memory, as `forward` returns."""
+        over NDHWC memory, as `forward` returns. Once the BN is folded
+        away (bn_fold.py), the ReLU runs in the sum's store instead of a
+        pass of its own."""
         conv = self.Conv_0
+        folded = self.BatchNorm_0 is None
         y = sparse_conv3x3(feat, coords, counts, occ, conv.weight, conv.bias,
-                           conv.stride[0], conv.padding[0])
-        return bn_relu(self.BatchNorm_0, y.permute(0, 4, 1, 2, 3), feat.dtype)
+                           conv.stride[0], conv.padding[0], relu=folded)
+        y = y.permute(0, 4, 1, 2, 3)
+        return y if folded else bn_relu(self.BatchNorm_0, y, feat.dtype)
 
 
 def bn_relu(bn, y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

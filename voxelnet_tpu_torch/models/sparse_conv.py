@@ -30,7 +30,8 @@ def weight_matrix(weight: torch.Tensor) -> torch.Tensor:
 def sparse_conv3x3(feat: torch.Tensor, coords: torch.Tensor,
                    counts: torch.Tensor, occ: torch.Tensor,
                    weight: torch.Tensor, bias: torch.Tensor, stride_d: int,
-                   pad_d: int, w_window=None) -> torch.Tensor:
+                   pad_d: int, w_window=None,
+                   relu: bool = False) -> torch.Tensor:
     """Exact 3x3x3 / stride (stride_d, 1, 1) / pad (pad_d, 1, 1) conv of the
     zero-backed voxel table.
 
@@ -40,7 +41,8 @@ def sparse_conv3x3(feat: torch.Tensor, coords: torch.Tensor,
     kernels/sparse_conv.py::occupancy_map (B, D, H, W), which carries the
     grid; weight the Conv3d's (Cout, C, 3, 3, 3), bias (Cout,).
     w_window=(x0, wloc) computes only output columns [x0, x0 + wloc) (the
-    spatial-sharding unit).
+    spatial-sharding unit). relu=True applies a ReLU to the output in the
+    sum's store (the block's ReLU where no BN sits between).
 
     The product is rounded to feat's type and then widened, as JAX computes
     `vals` in feat.dtype (`sparse_conv.py:87`); the sum and the bias run in
@@ -52,4 +54,4 @@ def sparse_conv3x3(feat: torch.Tensor, coords: torch.Tensor,
     vals = feat @ weight_matrix(weight.to(feat.dtype))
     acc = torch.promote_types(feat.dtype, torch.float32)
     return sparse_conv_autograd(vals.view(B, K, 27, -1), coords, counts, occ,
-                                bias.to(acc), stride_d, pad_d, w_window)
+                                bias.to(acc), stride_d, pad_d, w_window, relu)
