@@ -1,5 +1,6 @@
 """Drive the PyTorch port's Car inference path, train step, trainer, data
-parallelism, learning run, viz and data tools on one NVIDIA GPU.
+parallelism, learning run, viz, data tools, sparse1 and spatial W-sharding
+on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -111,7 +112,26 @@ Phases, each fatal on failure:
      and both sparse kernels launched and dense_build not, step time,
      stage split and peak memory, one tiny f32 step on the card
      against the CPU; cli.train for one epoch (the Trainer) and two gloo
-     ranks on cuda:0 with sparse1, their launches.
+     ranks on cuda:0 with sparse1, their launches;
+ 11. the slice of spatial W-sharding (`system.num_model_shards > 1`),
+     workers of this script in a process group on cuda:0 over gloo:
+     (a) a 1 x 2 mesh, Car inference at full width, bf16, B=8 (phase 4's
+     model and frames, score_thres 0), conv3d and sparse1:
+     make_inference_fn's detections matched to one process's by score and
+     box (as phase 10), the eval forward's gathered cls and reg maps
+     against one process's within MAP_GATES' bf16 shares of their
+     spread, each rank's launches (vfe_fused with dense_build, or with
+     occupancy_map and sparse_conv), the all-reduces of a call by group
+     and the median call time; (b) a 2 x 2 mesh, the Car bf16 train step
+     at global B=4 (conv3d 3 steps, sparse1 2): step 1's loss and pre-clip
+     grad norm against one process, the four ranks bit-identical after
+     the last, launches per rank, all-reduces of a step by group; (c) the
+     tiny f32 grid: the 2 x 2 step and the 1 x 2 eval maps against one
+     process on the card at f32 tolerances; (d) `torchrun --nproc_per_node
+     2 -m voxelnet_tpu_torch.cli.train` with `system.num_model_shards: 2`
+     for one epoch on phase 6's tree: one checkpoint, one label file a val
+     frame, cli.eval over them; (e) where torch sees two cards or more,
+     (a) over NCCL (and (b) on four), else it says it did not run.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing it when
 torch sees no CUDA device or any check fails.
@@ -150,7 +170,7 @@ from voxelnet_tpu_torch.models.voxelnet import (STAGES, build_model,
                                                 make_inference_fn)
 from voxelnet_tpu_torch.ops.voxelize import (VoxelGridSpec, prepare,
                                              resolve_host_voxelizer,
-                                             voxelize_np)
+                                             voxelize_np, voxelize_table)
 from voxelnet_tpu_torch.parallel import distributed
 from voxelnet_tpu_torch.training.train_step import (TRAIN_STAGES,
                                                     create_train_state,
@@ -967,40 +987,51 @@ def phase_trainer_timing(frames, device, seed, tmp, card, step_fps):
           f"{t['checkpoint_s'][1] * 1e3} ms")
 
 
-def dp_config(overrides: dict, world: int):
+def dp_config(overrides: dict, world: int, model: int = 1):
+    """The Car config of `overrides` on a mesh of `world` processes,
+    `model` of them a model group (spatial W-sharding), the rest data
+    shards."""
     return get_config("Car", **dict(overrides, system={
-        "num_data_shards": world}))
+        "num_data_shards": world // model, "num_model_shards": model}))
+
+
+def local_rows(batch: dict, size: int, model: int, device) -> dict:
+    """This rank's rows of a global batch of `size` rows: the block of its
+    data index (rank // model), on `device`."""
+    local = size // (distributed.world_size() // model)
+    lo = distributed.rank() // model * local
+    return {k: torch.as_tensor(v[lo:lo + local], device=device)
+            for k, v in batch.items()}
 
 
 def dp_run(run: dict, frames, device) -> dict:
-    """One data-parallel run of a worker: `steps` train steps on this
-    rank's rows of a seeded global batch, then `timed` more under
-    CUDA-event marks; metrics, launch counts, the all-reduces of one step,
-    the ranks' agreement and times."""
-    world = distributed.world_size()
-    config = dp_config(run["overrides"], world)
-    batch = train_batch(config, frames, run["batch"], run["seed"])
-    local = run["batch"] // world
-    lo = distributed.rank() * local
-    batch = {k: torch.as_tensor(v[lo:lo + local], device=device)
-             for k, v in batch.items()}
+    """One data-parallel (or, with run["model"] > 1, spatially sharded)
+    train run of a worker: `steps` train steps on this rank's rows of a
+    seeded global batch, then `timed` more under CUDA-event marks;
+    metrics, launch counts, the all-reduces of one step (in all and by
+    group), the ranks' agreement and times."""
+    world, model = distributed.world_size(), run.get("model", 1)
+    config = dp_config(run["overrides"], world, model)
+    batch = local_rows(train_batch(config, frames, run["batch"],
+                                   run["seed"]), run["batch"], model, device)
     state = create_train_state(config, build_model(config, seed=SEED),
                                device=device)
     distributed.broadcast_state_(state.model)
     step = make_train_step(config, device)
     reset_launches()
-    distributed.all_reduces = distributed.all_reduce_bytes = 0
+    distributed.reset_counts()
     metrics, per_step = [], None
     for i in range(run["steps"]):
         state, m = step(state, batch)
         metrics.append({k: float(v) for k, v in m.items()})
         if i == 0:
-            per_step = (distributed.all_reduces,
-                        distributed.all_reduce_bytes)
+            per_step = {k: list(v) for k, v in
+                        distributed.all_reduce_counts.items()}
     torch.cuda.synchronize()
     out = {"metrics": metrics, "launches": launch_counts(),
-           "all_reduces_per_step": per_step[0],
-           "all_reduce_bytes_per_step": per_step[1],
+           "all_reduces_per_step": sum(c for c, _ in per_step.values()),
+           "all_reduce_bytes_per_step": sum(n for _, n in per_step.values()),
+           "all_reduces_by_group": per_step,
            "disagree": distributed.ranks_disagree(state.model)}
     if run["timed"]:
         totals, reduce_ms = [], []
@@ -1030,9 +1061,57 @@ def dp_run(run: dict, frames, device) -> dict:
     return out
 
 
+def spatial_infer_run(run: dict, frames, device, job_path: str) -> dict:
+    """One spatially sharded inference run of a worker (phase 11): phase
+    4's model (the same seed) on `batch` vendored frames (cycled), each
+    rank of a model group on the same rows; make_inference_fn's
+    detections, its launch counts and all-reduces by group for one call,
+    and the median end-to-end and stage times of `timed` calls (CUDA
+    events, as phase 4); the eval-mode forward's cls and reg maps
+    (whole W). Rank 0 saves the detections and maps to
+    <job>.<name>.pt."""
+    world, model = distributed.world_size(), run["model"]
+    config = dp_config(run["overrides"], world, model)
+    net = make_model(config, device)
+    infer = make_inference_fn(config, device)
+    points, num = predict.stage_points(
+        [frames[i % len(frames)] for i in range(run["batch"])], config,
+        np.random.default_rng(SEED))
+    rows = local_rows({"points": points, "num_points": num}, run["batch"],
+                      model, device)
+    infer(net, rows["points"], rows["num_points"])
+    torch.cuda.synchronize()
+    reset_launches()
+    distributed.reset_counts()
+    det = infer(net, rows["points"], rows["num_points"])
+    torch.cuda.synchronize()
+    out = {"launches": launch_counts(),
+           "all_reduces_by_group": {k: list(v) for k, v in
+                                    distributed.all_reduce_counts.items()}}
+    per_stage = {s: [] for s in ("total",) + STAGES}
+    for _ in range(run["timed"]):
+        marks = []
+        infer(net, rows["points"], rows["num_points"], marks)
+        torch.cuda.synchronize()
+        for (_, a), (stage, b) in zip(marks, marks[1:]):
+            per_stage[stage].append(a.elapsed_time(b))
+        per_stage["total"].append(marks[0][1].elapsed_time(marks[-1][1]))
+    out["stage_ms"] = ({s: statistics.median(v) for s, v in
+                        per_stage.items()} if run["timed"] else None)
+    vox = voxelize_table(rows["points"], rows["num_points"],
+                         VoxelGridSpec.from_object_config(config.object),
+                         config.data.max_voxels)
+    with torch.no_grad():
+        cls, reg = net.eval()(vox.features, vox.coords, vox.counts)
+    if distributed.rank() == 0:
+        torch.save({"det": [t.cpu() for t in det], "cls": cls.cpu(),
+                    "reg": reg.cpu()}, f"{job_path}.{run['name']}.pt")
+    return out
+
+
 def dp_worker(job_path: str, rank: int) -> None:
-    """A rank of a phase 7 run: join the job's group, run its runs, write
-    the results as JSON next to the job."""
+    """A rank of a phase 7 or phase 11 run: join the job's group, run its
+    runs, write the results as JSON next to the job."""
     with open(job_path) as f:
         job = json.load(f)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1042,8 +1121,10 @@ def dp_worker(job_path: str, rank: int) -> None:
         device=job["device"] or f"cuda:{rank}", timeout_s=DP_TIMEOUT_S)
     try:
         frames = sample_frames()
-        out = {run["name"]: dp_run(run, frames, device)
-               for run in job["runs"]}
+        out = {run["name"]: (
+            spatial_infer_run(run, frames, device, job_path)
+            if run.get("kind") == "infer" else dp_run(run, frames, device))
+            for run in job["runs"]}
     finally:
         distributed.shutdown()
     with open(f"{job_path}.out{rank}", "w") as f:
@@ -1108,10 +1189,11 @@ def check_ranks_agree(name: str, outs: list[dict],
 
 
 def check_dp_run(name: str, outs: list[dict], want: dict, loss_rel: float,
-                 norm_rel: float) -> None:
+                 norm_rel: float, ran=("run_copy", "dense_build"),
+                 idle=()) -> None:
     """check_ranks_agree, and step 1 against one process at the same
     global batch."""
-    check_ranks_agree(name, outs)
+    check_ranks_agree(name, outs, ran, idle)
     got = outs[0]["metrics"][0]
     lr = abs(got["loss"] / want["loss"] - 1)
     nr = abs(got["grad_norm"] / want["grad_norm"] - 1)
@@ -2027,6 +2109,225 @@ def phase_sparse_train(frames, device, card, seed, tmp):
     return launches, trainer, outs[0]["launches"]
 
 
+# ---- phase 11: spatial W-sharding, system.num_model_shards > 1
+
+# (a) the inference batch and its timed calls a rank
+SPATIAL_BATCH = 8
+SPATIAL_TIMED = 5
+# the sharded maps against one process, as shares of the one-process
+# logits' spread (std): bf16 slab convs may take other cuDNN algorithms
+# and sum in another order (a zero or wrong halo moves an edge column by
+# about the spread itself); f32 (c) as tests/test_torch_model.py holds f32
+MAP_GATES = {"bf16": (0.1, 0.01), "f32": (1e-4, 1e-5)}
+
+
+def stage_frames(config, frames, batch: int):
+    return predict.stage_points([frames[i % len(frames)]
+                                 for i in range(batch)], config,
+                                np.random.default_rng(SEED))
+
+
+def eval_maps(config, model, points, num, device):
+    """The eval-mode forward's (cls, reg) of the run-copy voxel table."""
+    vox = voxelize_table(torch.as_tensor(points, device=device),
+                         torch.as_tensor(num, device=device),
+                         VoxelGridSpec.from_object_config(config.object),
+                         config.data.max_voxels)
+    with torch.no_grad():
+        return model.eval()(vox.features, vox.coords, vox.counts)
+
+
+def compare_maps(name: str, got, want, gate: str) -> dict:
+    """Largest and median |got - want| as shares of want's spread, and the
+    share of bit-equal elements; fatal past MAP_GATES[gate]."""
+    got, want = got.float().cpu(), want.float().cpu()
+    check(got.shape == want.shape, f"{name}: shape {got.shape} vs "
+          f"{want.shape}")
+    spread = float(want.std())
+    diff = (got - want).abs()
+    out = {"max": float(diff.max()) / spread,
+           "median": float(diff.median()) / spread,
+           "equal": float((diff == 0).float().mean())}
+    top, med = MAP_GATES[gate]
+    check(out["max"] <= top and out["median"] <= med,
+          f"{name}: sharded maps off one process's by {out} of the spread "
+          f"(gates {top}, {med})")
+    return out
+
+
+def phase_spatial(frames, device, seed, tmp, card) -> dict:
+    """Phase 11 -> the launch counts of rank 0 of each sharded path."""
+    print("[11] spatial W-sharding: 1 x 2 inference (Car bf16 B=8, conv3d "
+          "and sparse1; tiny f32 maps) and 2 x 2 train steps (Car bf16 "
+          "B=4, tiny f32) on cuda:0 over gloo, torchrun cli.train with "
+          "num_model_shards 2, NCCL where cards allow")
+    thres0 = {"rpn": {"score_thres": 0.0}}
+    infer = {middle: {"name": f"infer-{middle}", "kind": "infer",
+                      "overrides": merged(thres0, SPARSE1 if middle ==
+                                          "sparse1" else {}),
+                      "model": 2, "batch": SPATIAL_BATCH,
+                      "timed": SPATIAL_TIMED}
+             for middle in ("conv3d", "sparse1")}
+    tiny_infer = {"name": "infer-tiny", "kind": "infer", "overrides": TINY,
+                  "model": 2, "batch": 2, "timed": 0}
+    launches = {}
+
+    # (a) inference on a 1 x 2 mesh, and (c)'s tiny f32 maps
+    t0 = time.perf_counter()
+    job = os.path.join(tmp, "spatial_infer.json")
+    outs = run_dp_workers(tmp, "spatial_infer", "gloo", "cuda:0",
+                          [*infer.values(), tiny_infer])
+    print(f"  (a) 2 ranks: {time.perf_counter() - t0} s with the ranks' "
+          f"start")
+    for middle, run in infer.items():
+        config = get_config("Car", **run["overrides"])
+        model = make_model(config, device)
+        points, num = stage_frames(config, frames, SPATIAL_BATCH)
+        want = make_inference_fn(config, device)(model, points, num)
+        saved = torch.load(f"{job}.{run['name']}.pt", weights_only=True)
+        got = type(want)(*saved["det"])
+        check_detections(got, config, SPATIAL_BATCH)
+        m = match_detections(got, want)
+        check(m["detections"] > 0 and m["sorted_score_gap"] <= MATCH_SCORE
+              and m["matched"] >= 0.5 * m["detections"],
+              f"(a) {middle}: sharded detections differ from one "
+              f"process's: {m}")
+        cls, reg = eval_maps(config, model, points, num, device)
+        maps = {"cls": compare_maps(f"(a) {middle} cls", saved["cls"], cls,
+                                    "bf16"),
+                "reg": compare_maps(f"(a) {middle} reg", saved["reg"], reg,
+                                    "bf16")}
+        del model
+        ran, idle = (("vfe_fused", "occupancy_map", "sparse_conv"),
+                     ("dense_build", "run_copy", "sparse_conv_grad")
+                     ) if middle == "sparse1" else (
+            ("vfe_fused", "dense_build"),
+            ("run_copy", "sparse_conv", "sparse_conv_grad", "occupancy_map"))
+        for r, o in enumerate(outs):
+            check_launched(f"(a) {middle} rank {r}", o[run["name"]]
+                           ["launches"], ran, idle)
+        a = [o[run["name"]] for o in outs]
+        launches[f"spatial_{middle}_inference_rank0"] = a[0]["launches"]
+        print(f"  (a) {middle}, Car bf16 B={SPATIAL_BATCH}, 1 x 2: against "
+              f"one process, detections {m}; eval maps (shares of the "
+              f"spread) {maps}; launches per rank "
+              f"{[o['launches'] for o in a]}; all-reduces of a call by "
+              f"group [count, bytes] {a[0]['all_reduces_by_group']}; median "
+              f"call {[o['stage_ms']['total'] for o in a]} ms per rank "
+              f"(gloo through the host, both ranks on one card) [{card}]")
+        print("    rank 0 stages: " + ", ".join(
+            f"{k} {a[0]['stage_ms'][k]}" for k in STAGES) + " (ms)")
+    config = get_config("Car", **TINY)
+    model = make_model(config, device)
+    points, num = stage_frames(config, frames, 2)
+    saved = torch.load(f"{job}.infer-tiny.pt", weights_only=True)
+    cls, reg = eval_maps(config, model, points, num, device)
+    maps = {"cls": compare_maps("(c) tiny cls", saved["cls"], cls, "f32"),
+            "reg": compare_maps("(c) tiny reg", saved["reg"], reg, "f32")}
+    print(f"  (c) tiny f32 grid, 1 x 2 eval maps against one process: "
+          f"{maps}")
+    del model
+
+    # (b) train steps on a 2 x 2 mesh, and (c)'s tiny f32 step
+    car = {"name": "car", "overrides": {}, "model": 2, "batch": 4,
+           "seed": seed, "steps": DP_STEPS, "timed": DP_STEPS}
+    sp1 = dict(car, name="sparse1", overrides=SPARSE1, steps=2, timed=0)
+    tiny = dict(car, name="tiny", overrides=TINY, steps=1, timed=0)
+    want = {run["name"]: one_process_step(run["overrides"], frames, device,
+                                          4, seed)
+            for run in (car, sp1, tiny)}
+    t0 = time.perf_counter()
+    outs = run_dp_workers(tmp, "spatial_train", "gloo", "cuda:0",
+                          [car, sp1, tiny], world=4)
+    print(f"  (b) 4 ranks: {time.perf_counter() - t0} s with the ranks' "
+          f"start")
+    sparse_ran = ("run_copy", "occupancy_map", "sparse_conv",
+                  "sparse_conv_grad")
+    check_dp_run("(b) Car bf16, 2 x 2 ranks, B=4", [o["car"] for o in outs],
+                 want["car"], 2e-2, 5e-2)
+    check_dp_run("(b) Car bf16 sparse1, 2 x 2 ranks, B=4",
+                 [o["sparse1"] for o in outs], want["sparse1"], 2e-2, 5e-2,
+                 ran=sparse_ran, idle=("dense_build",))
+    # phase 7 (b)'s tolerances: f32 statistics summed in another order
+    check_dp_run("(c) tiny f32, 2 x 2 ranks, B=4", [o["tiny"] for o in outs],
+                 want["tiny"], 1e-4, 5e-3)
+    o = outs[0]["car"]
+    print(f"  (b) Car 2 x 2: step {[p['car']['step_ms'] for p in outs]} ms "
+          f"per rank at B=2 a data index (one shared card over gloo); the "
+          f"gradient all-reduce over the world {o['grad_all_reduce_ms']} ms "
+          f"alone, {o['grad_all_reduce_in_step_ms']} ms in the step [{card}]")
+    for name in ("car", "sparse1"):
+        o = outs[0][name]
+        launches[f"spatial_{'sparse1' if name == 'sparse1' else 'conv3d'}"
+                 f"_train_rank0"] = o["launches"]
+        print(f"  (b) {name}: all-reduces of step 1 by group [count, bytes] "
+              f"{o['all_reduces_by_group']} (in all "
+              f"{o['all_reduces_per_step']}, "
+              f"{o['all_reduce_bytes_per_step']} bytes)")
+
+    # (d) the CLI under torchrun with a model axis, on phase 6's tree
+    data = os.path.join(tmp, "kitti")
+    exp = os.path.join(tmp, "exp_spatial")
+    cfg = os.path.join(tmp, "spatial.yaml")
+    with open(cfg, "w") as f:
+        f.write("system: {num_model_shards: 2}\n"
+                "train: {num_epochs: 1, batch_size: 2}\n"
+                "val: {batch_size: 2}\n")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "voxelnet_tpu_torch.cli.train",
+         "--dist-backend", "gloo", "--device", "cuda:0", "--data-dir", data,
+         "--exp-dir", exp, "--cfg", cfg, "--print-interval", "1"],
+        capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+    check(r.returncode == 0, f"(d) torchrun cli.train exited {r.returncode}"
+          f":\n{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    logged = [line for line in r.stdout.splitlines()
+              if line.startswith(("Train ", "Epoch "))]
+    steps = TRAINER_FILES["training"] // 2
+    print(f"  (d) torchrun cli.train, 1 x 2: {time.perf_counter() - t0} s"
+          + "".join(f"\n    {line}" for line in logged))
+    check(len(logged) == steps + 1, f"(d) expected {steps} step lines and "
+          f"one epoch line, from rank 0 only: {logged}")
+    ckpts = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+    check(ckpts == ["0"], f"(d) checkpoints {ckpts}")
+    saved = torch.load(os.path.join(exp, "checkpoints", "0", "state.pt"),
+                       map_location="cpu", weights_only=True)
+    check(saved["step"] == steps, f"(d) step count {saved['step']}")
+    val_tags = sorted(f[:-4] for f in os.listdir(
+        os.path.join(data, "validation", "velodyne")))
+    dumped = sorted(os.listdir(os.path.join(exp, "preds", "1", "data")))
+    check(dumped == [t + ".txt" for t in val_tags], f"(d) preds/1: {dumped}")
+    ap = json.loads(run_cli(eval_cli.main, [
+        "--preds", os.path.join(exp, "preds", "1", "data"),
+        "--gt", os.path.join(data, "validation", "label_2"),
+        "--iou", "0.5", "--mode", "bev"]))
+    check(ap["frames"] == len(val_tags), f"(d) cli.eval frames {ap}")
+    print(f"  (d) one checkpoint at step {saved['step']}, one label file of "
+          f"each of the {len(val_tags)} val frames; cli.eval "
+          f"{json.dumps(ap)}")
+
+    # (e) NCCL across cards
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        outs = run_dp_workers(tmp, "spatial_nccl", "nccl", None,
+                              [infer["conv3d"]])
+        check_launched("(e) NCCL inference rank 0",
+                       outs[0]["infer-conv3d"]["launches"],
+                       ("vfe_fused", "dense_build"))
+        print(f"  (e) NCCL, 1 x 2 on 2 cards: median call "
+              f"{[o['infer-conv3d']['stage_ms']['total'] for o in outs]} ms "
+              f"[{card}]")
+        if cards >= 4:
+            outs = run_dp_workers(tmp, "spatial_nccl4", "nccl", None, [car],
+                                  world=4)
+            check_dp_run("(e) Car bf16, NCCL 2 x 2 on 4 cards",
+                         [o["car"] for o in outs], want["car"], 2e-2, 5e-2)
+    else:
+        print(f"  (e) NCCL across cards: not run, torch sees {cards} card")
+    return launches
+
+
 def kernel_entry(name, times, errs, bounds, launches, by_path) -> dict:
     """One kernel's object of the {"kernels": [...]} line: event and
     profiler device times of the kernel, its plain version and its one
@@ -2064,7 +2365,8 @@ def parse_args(argv):
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the synthetic GT boxes and point shuffles")
     p.add_argument("--dp-worker", metavar="JOB", default=None,
-                   help="run as one rank of a phase 7 job (internal)")
+                   help="run as one rank of a phase 7, 10 or 11 job "
+                        "(internal)")
     p.add_argument("--rank", type=int, default=0)
     return p.parse_args(argv)
 
@@ -2137,6 +2439,9 @@ def main(argv=None):
         print(f"[10] phase 10 took {took[-1] - took[0]} s: (a) "
               f"{took[1] - took[0]}, (b) {took[2] - took[1]}, (c) "
               f"{took[3] - took[2]} s")
+        t11 = time.perf_counter()
+        spatial = phase_spatial(frames, device, args.seed, tmp, card)
+        print(f"[11] phase 11 took {time.perf_counter() - t11} s")
 
     # each kernel's count on the path of the slice that brought it: the
     # fused VFE runs only for inference, dense_build and run_copy on the
@@ -2162,7 +2467,7 @@ def main(argv=None):
                "sparse1_inference": sparse_infer,
                "sparse1_train": sparse_train,
                "sparse1_trainer": sparse_trainer,
-               "sparse1_data_parallel_rank0": sparse_dp}
+               "sparse1_data_parallel_rank0": sparse_dp, **spatial}
     entries = [kernel_entry(name, times, errs, bounds, launches, by_path)
                for name in KERNELS]
     entries[KERNELS.index("vfe_fused")].update(vfe_info)

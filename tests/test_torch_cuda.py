@@ -145,6 +145,50 @@ def test_dense_kernel_matches_plain(cuda_device):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("num,index", [(2, 0), (2, 1), (4, 2)])
+def test_slab_grid_matches_plain_slice(cuda_device, dtype, num, index):
+    """A W slab of the dense grid (models/scatter.py, spatial sharding):
+    the in-slab rows compacted to the front, the kernel on the slab's ids,
+    bit-equal to the slab's columns of dense_build_plain's whole grid;
+    its gradient (through the compaction) bit-equal to the whole grid's
+    row gather of a cotangent zero outside the slab."""
+    from voxelnet_tpu_torch.models.scatter import scatter_to_dense_streamed
+    from voxelnet_tpu_torch.parallel.spatial import slab
+
+    rng = np.random.default_rng(6)
+    D, H, W = 10, 40, 64
+    K, n = 512, D * H * W
+    coords = np.zeros((2, K, 3), np.int32)
+    counts = np.zeros((2, K), np.int32)
+    for b, live in ((0, 500), (1, 40)):
+        cells = np.sort(rng.choice(n, live, replace=False))
+        coords[b, :live] = np.stack([cells // (H * W), cells // W % H,
+                                     cells % W], -1)
+        counts[b, :live] = rng.integers(1, 35, live)
+    feat = torch.from_numpy(rng.normal(0, 1, (2, K, 128)).astype(
+        np.float32)).to(cuda_device, dtype).requires_grad_()
+    c = torch.from_numpy(coords).to(cuda_device)
+    k = torch.from_numpy(counts).to(cuda_device)
+    x0, w = slab(W, num, index)
+    before = dense_build.launches
+    got = scatter_to_dense_streamed(feat, c, k, (D, H, W), (x0, w))
+    cot = torch.from_numpy(rng.normal(0, 1, got.shape).astype(
+        np.float32)).to(cuda_device, dtype)
+    got.backward(cot)
+    torch.cuda.synchronize()
+    assert dense_build.launches == before + 1
+    ids = torch.where(k > 0, (c[..., 0] * H + c[..., 1]) * W + c[..., 2],
+                      n).to(torch.int32).cpu()
+    whole = dense_build.dense_build_plain(feat.detach().cpu(), ids, n)
+    assert torch.equal(got.detach().cpu(),
+                       whole.view(2, D, H, W, 128)[:, :, :, x0:x0 + w])
+    full_cot = torch.zeros((2, D, H, W, 128), dtype=dtype)
+    full_cot[:, :, :, x0:x0 + w] = cot.cpu()
+    assert torch.equal(feat.grad.cpu(), dense_build.dense_build_grad(
+        full_cot.view(2, n, 128), ids, n))
+
+
 def test_run_copy_kernel_matches_plain(cuda_device):
     """Bit-equal, with runs longer than T and empty voxels (run start N)."""
     cfg = get_config("Car", **TINY)

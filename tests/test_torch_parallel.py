@@ -10,25 +10,21 @@ the f32 master weights and test_torch_train.py's tolerances hold. One
 worker launch runs every case; the module's tests read its results."""
 
 import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
 import torch
 from torch_dp_worker import bn_case, step_case, trainer_case
-from torch_port_helpers import (TINY, configs, init_scale_biases,
-                                jax_variables, merged, step_batch,
-                                torch_model, write_mini_kitti)
+from torch_port_helpers import (TINY, configs, finish_workers,
+                                init_scale_biases, jax_variables, merged,
+                                start_workers, step_batch, torch_model,
+                                write_mini_kitti)
 
 from voxelnet_tpu_torch.cli import train as train_cli
 from voxelnet_tpu_torch.config import get_config, resolve_plan
 from voxelnet_tpu_torch.models.voxelnet import build_model
 from voxelnet_tpu_torch.parallel import distributed, mesh
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WORKER = os.path.join(REPO, "tests", "torch_dp_worker.py")
-WORKER_TIMEOUT_S = 120
 REL = 1e-9
 STEPS_PER_EPOCH = 10
 
@@ -58,28 +54,7 @@ def _two_torch_threads():
 
 def run_workers(tmp: str, cases: dict, world: int = 2) -> list[dict]:
     """Run `cases` in `world` worker processes -> each rank's results."""
-    job = os.path.join(tmp, "job.pt")
-    torch.save({"world": world, "cases": cases,
-                "init": "file://" + os.path.join(tmp, "rendezvous")}, job)
-    env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=os.pathsep.join(
-        [REPO] + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
-    procs = [subprocess.Popen([sys.executable, WORKER, job, str(r)],
-                              env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=WORKER_TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log[-4000:]
-    return [torch.load(f"{job}.out{r}", weights_only=False)
-            for r in range(world)]
+    return finish_workers(start_workers(tmp, cases, world))
 
 
 def _bn_inputs(rng, masked: bool) -> dict:
@@ -164,37 +139,80 @@ def test_all_reduce_sum_forward_and_backward(dp):
     x = torch.tensor(3.0, requires_grad=True)
     assert distributed.all_reduce_sum(x) is x      # no group: the identity
     assert distributed.all_reduce_([x])[0] is x
-    assert distributed.process_shard() is None
-    assert distributed.local_num_real(3, 4) == 3
+    one = mesh.process_mesh(get_config("Car").system)
+    assert one.process_shard() is None
+    assert one.local_num_real(3, 4) == 3
+
+
+def _fake_group(monkeypatch, world: int, rank: int) -> None:
+    """A stand-in process group of `world` processes, this one `rank`:
+    torch's new_group only records that it was called."""
+    monkeypatch.setattr(distributed, "is_initialized", lambda: world > 1)
+    monkeypatch.setattr(distributed, "world_size", lambda: world)
+    monkeypatch.setattr(distributed, "rank", lambda: rank)
+    monkeypatch.setattr(distributed, "_handles", {})
+    monkeypatch.setattr(distributed.dist, "new_group", lambda ranks: ranks)
 
 
 @pytest.mark.parametrize("shards,world,want", [
-    ({}, 1, (1, 0)),
-    ({"num_data_shards": 2}, 2, (2, 1)),
-    ({"num_dcn_shards": 2, "num_data_shards": 2}, 4, (4, 1)),
+    ({}, 1, (1, 0, 1, 0, 0)),
+    ({"num_data_shards": 2}, 2, (2, 1, 1, 1, 0)),
+    ({"num_dcn_shards": 2, "num_data_shards": 2}, 4, (4, 1, 1, 1, 0)),
+    # the 'model' axis: ranks laid out as JAX lays out devices,
+    # rank = data index * num_model + model index
+    ({"num_model_shards": 2}, 2, (2, 1, 2, 0, 1)),
+    ({"num_data_shards": 2, "num_model_shards": 2}, 4, (4, 1, 2, 0, 1)),
 ])
 def test_mesh_maps_batch_axes_onto_processes(monkeypatch, shards, world,
                                              want):
-    monkeypatch.setattr(distributed, "is_initialized", lambda: world > 1)
-    monkeypatch.setattr(distributed, "world_size", lambda: world)
-    monkeypatch.setattr(distributed, "rank", lambda: min(1, world - 1))
+    """(world size, rank, model axis, data index, model index) of rank 1
+    (rank 0 alone), and the plan's world size and rank."""
+    _fake_group(monkeypatch, world, min(1, world - 1))
     cfg = get_config("Car", system=shards)
-    assert mesh.process_mesh(cfg.system) == want
-    assert resolve_plan(cfg, train=True)[2:4] == want
+    got = mesh.process_mesh(cfg.system)
+    assert got[:5] == want
+    assert resolve_plan(cfg, train=True)[2:4] == want[:2]
+    if want[2] > 1:
+        m, d = want[4], want[3]
+        assert got.model_group.ranks == tuple(
+            range(d * want[2], (d + 1) * want[2]))
+        assert got.data_group.ranks == tuple(range(m, world, want[2]))
 
 
 @pytest.mark.parametrize("shards,world,match", [
-    ({"num_model_shards": 2}, 1, "item 17"),
-    ({"num_data_shards": 2, "num_model_shards": 2}, 4, "W-sharding"),
+    ({"num_model_shards": 2}, 1, "no torch.distributed process group"),
+    ({"num_data_shards": 2, "num_model_shards": 2}, 2,
+     "= 4, but 2 processes.*--nproc_per_node 4"),
+    ({"num_model_shards": 3}, 3, "W=352 must divide by num_model_shards=3"),
+    # Car's 352 columns in 8 slabs of 44: not a multiple of 2 x 4
+    ({"num_model_shards": 8}, 8, "multiple of rpn.block1_stride x 4 = 8"),
     ({"num_data_shards": 2}, 1, "no torch.distributed process group"),
     ({"num_data_shards": 4}, 2, "--nproc_per_node 4"),
     ({}, 2, "system.num_data_shards: 2"),
 ])
 def test_mesh_refusals_say_what_to_do(monkeypatch, shards, world, match):
-    monkeypatch.setattr(distributed, "is_initialized", lambda: world > 1)
-    monkeypatch.setattr(distributed, "world_size", lambda: world)
+    _fake_group(monkeypatch, world, 0)
     with pytest.raises(ValueError, match=match):
         resolve_plan(get_config("Car", system=shards))
+
+
+@pytest.mark.parametrize("data,match", [
+    ({"middle_backend": "sparsebwd"}, "'sparsebwd' does not partition over "
+     "the spatial 'model' axis"),
+    ({"vfe_backend": "fused"}, "'fused' does not partition over the "
+     "spatial 'model' axis"),
+    ({"dense_build": "pallas"}, "'pallas' does not partition over a mesh"),
+])
+def test_model_axis_refuses_what_jax_refuses(monkeypatch, data, match):
+    """The JAX resolvers' refusals under a 'model' axis, with their
+    messages (`voxelnet_tpu/models/voxelnet.py:226-230, 393-397,
+    434-445`); without the axis the same knobs resolve."""
+    _fake_group(monkeypatch, 2, 0)
+    with pytest.raises(ValueError, match=match):
+        resolve_plan(get_config("Car", data=data,
+                                system={"num_model_shards": 2}))
+    assert resolve_plan(get_config("Car", data=data,
+                                   system={"num_data_shards": 2}))
 
 
 def test_train_cli_refuses_several_processes_without_exp_dir(monkeypatch):

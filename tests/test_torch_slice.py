@@ -79,7 +79,6 @@ def test_resolver_maps_every_lowering_to_one_path(key, values):
     # with the reference's ghost-activation VFE is refused, as in JAX
     ({"compat": {"bn_over_padding": True}, "data": {"vfe_backend": "fused"}},
      "bn_over_padding"),
-    ({"system": {"num_model_shards": 2}}, "W-sharding"),
     ({"system": {"num_data_shards": 4}}, "no torch.distributed process"),
     ({"data": {"middle_backend": "nope"}}, "middle_backend"),
     ({"data": {"bev_fold": "nope"}}, "bev_fold"),
@@ -88,6 +87,34 @@ def test_resolver_maps_every_lowering_to_one_path(key, values):
 def test_resolver_refuses(overrides, match):
     with pytest.raises(ValueError, match=match):
         resolve_plan(get_config("Car", **overrides))
+
+
+@pytest.mark.parametrize("middle", ["conv3d", "sparse1"])
+def test_resolver_accepts_a_model_axis(monkeypatch, middle):
+    """`system.num_model_shards: 2` (spatial W-sharding) resolves under a
+    2-process group, for both middles: rank 1 is model index 1 of the one
+    model group, data index 0, and the data group is itself alone. The
+    groups are made (here a stand-in for torch's new_group) in the same
+    order on every rank: data groups, then model groups."""
+    from voxelnet_tpu_torch.parallel import distributed, mesh
+
+    made = []
+    monkeypatch.setattr(distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(distributed, "world_size", lambda: 2)
+    monkeypatch.setattr(distributed, "rank", lambda: 1)
+    monkeypatch.setattr(distributed, "_handles", {})
+    monkeypatch.setattr(distributed.dist, "new_group",
+                        lambda ranks: made.append(ranks))
+    cfg = get_config("Car", system={"num_model_shards": 2},
+                     data={"middle_backend": middle})
+    assert resolve_plan(cfg, train=True) == (True, "bfloat16", 2, 1, middle)
+    got = mesh.process_mesh(cfg.system)
+    assert got[:5] == (2, 1, 2, 0, 1)
+    assert got.data_group == ("data", (1,))
+    assert got.model_group == ("model", (0, 1))
+    assert got.process_shard() is None
+    assert got.local_num_real(3, 4) == 3
+    assert made == [[0, 1]]     # once: groups of one need no torch group
 
 
 def test_stage_points_matches_jax_pipeline():
@@ -132,6 +159,7 @@ def test_port_imports_no_jax():
             "import voxelnet_tpu_torch.training.evaluate\n"
             "import voxelnet_tpu_torch.parallel.distributed\n"
             "import voxelnet_tpu_torch.parallel.mesh\n"
+            "import voxelnet_tpu_torch.parallel.spatial\n"
             "import voxelnet_tpu_torch.native\n"
             "import voxelnet_tpu_torch.tools.synthetic_smoke\n"
             "import voxelnet_tpu_torch.tools.dump_report\n"

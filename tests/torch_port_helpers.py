@@ -1,6 +1,11 @@
 """Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
 configs for both packages from one set of overrides, JAX variables with
-random BatchNorm affines and statistics, and their torch model."""
+random BatchNorm affines and statistics, and their torch model; the
+launcher of the gloo worker processes (tests/torch_dp_worker.py)."""
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -202,3 +207,46 @@ def write_mini_kitti(root, splits=(("training", 4), ("validation", 2)),
             open(os.path.join(root, split, "image_2", f"{i:06d}.png"),
                  "wb").close()
     return root
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORKER = os.path.join(REPO, "tests", "torch_dp_worker.py")
+WORKER_TIMEOUT_S = 120
+
+
+def start_workers(tmp: str, cases: dict, world: int, name: str = "job",
+                  threads: int = 2):
+    """Start `world` worker processes of `threads` torch threads each on
+    `cases`, joined by a file:// rendezvous under `tmp` -> a handle for
+    finish_workers."""
+    job = os.path.join(tmp, f"{name}.pt")
+    torch.save({"world": world, "cases": cases, "threads": threads,
+                "init": "file://" + os.path.join(tmp, f"{name}.rdv")}, job)
+    env = dict(os.environ, OMP_NUM_THREADS=str(threads),
+               PYTHONPATH=os.pathsep.join(
+                   [REPO] + os.environ.get("PYTHONPATH", "").split(
+                       os.pathsep)))
+    return job, [subprocess.Popen([sys.executable, WORKER, job, str(r)],
+                                  env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(world)]
+
+
+def finish_workers(started) -> list[dict]:
+    """Wait for the workers of start_workers, WORKER_TIMEOUT_S each at
+    most (killed past it) -> each rank's results; fails on a worker that
+    did not exit 0, with the end of its output."""
+    job, procs = started
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=WORKER_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+    return [torch.load(f"{job}.out{r}", weights_only=False)
+            for r in range(len(procs))]

@@ -6,8 +6,10 @@ exits with an error) and --dist-backend.
         [--cfg overrides.yaml] [--class-name Car] \
         [--resume exps/.../checkpoints] [--device cuda]
 
-Data parallel, one process per card, N = system.num_dcn_shards x
-num_data_shards in the --cfg file and train.batch_size the global batch:
+Several processes, one card each, N = system.num_dcn_shards x
+num_data_shards x num_model_shards in the --cfg file and train.batch_size
+the global batch (a model axis above 1 shards the BEV grid's W axis over
+the processes of each model group, which load the same rows):
 
     python -m torch.distributed.run --standalone --nproc_per_node N \
         -m voxelnet_tpu_torch.cli.train --exp-dir <shared dir> --cfg ...

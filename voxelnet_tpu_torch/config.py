@@ -20,6 +20,7 @@ from typing import Any, Mapping, NamedTuple
 import numpy as np
 
 from voxelnet_tpu_torch.parallel.mesh import process_mesh
+from voxelnet_tpu_torch.parallel.spatial import slab
 from voxelnet_tpu_torch.utils import yaml_subset
 
 # mean KITTI calibration matrices (per-frame calib files override them)
@@ -305,11 +306,11 @@ class Plan(NamedTuple):
     block 1 (the streaming dense-grid kernel and an nn.Conv3d, or
     'sparse1''s sparse conv of the voxel table), blocks 2-3 (nn.Conv3d)
     and the depth->BEV fold as a reshape of NCDHW; and the processes the
-    batch axes of the mesh run on (parallel/mesh.py)."""
+    mesh runs on (parallel/mesh.py)."""
 
     fold_bn: bool    # data.fold_bn: 'off' keeps the separate BN ops
     dtype: str       # train.compute_dtype
-    world_size: int = 1   # processes, one card each (dcn x data shards)
+    world_size: int = 1   # processes, one card each (dcn x data x model)
     rank: int = 0
     # 'sparse1' for data.middle_backend='sparse1'; 'conv3d' for every other
     # value, 'auto' included, as the JAX resolver answers off the TPU
@@ -339,16 +340,21 @@ def resolve_plan(config: VoxelNetConfig, train: bool = False) -> Plan:
     reshape, and one run-copy kernel for every table layout.
     `middle_backend='sparse1'` alone selects another middle: block 1
     computed from the voxel table (`Plan.middle`, `middle_path`); 'auto'
-    stays conv3d. The mesh's batch axes (`system.num_dcn_shards x
-    num_data_shards`) are processes, one card each: their product must
-    equal the running world size (1 without a process group).
-    `compat.bn_over_padding` (the reference's ghost-activation VFE) takes
-    the table VFE at inference, since the fused kernel implements only the
-    masked max. Raises where the port cannot
-    give the configured semantics, with the JAX resolvers' messages where
-    they have one: `data.vfe_backend='fused'` with `bn_over_padding`,
-    `train_vfe_backend='planar'` with `train.host_voxelize`, a 'model' axis
-    (`num_model_shards > 1`), a batch mesh that is not the world size
+    stays conv3d. The mesh's axes (`system.num_dcn_shards x
+    num_data_shards x num_model_shards`) are processes, one card each:
+    their product must equal the running world size (1 without a process
+    group). `compat.bn_over_padding` (the reference's ghost-activation
+    VFE) takes the table VFE at inference, since the fused kernel
+    implements only the masked max. Raises where the port cannot give the
+    configured semantics, with the JAX resolvers' messages where they have
+    one: `data.vfe_backend='fused'` with `bn_over_padding`,
+    `train_vfe_backend='planar'` with `train.host_voxelize`; under a
+    'model' axis (`num_model_shards > 1`, spatial W-sharding,
+    parallel/spatial.py) `middle_backend='sparsebwd'`, an explicit
+    `vfe_backend='fused'` or `dense_build='pallas'`, a grid W that the
+    axis does not divide, or a W slab that is not a multiple of
+    `rpn.block1_stride` x 4 columns (the RPN's three stride-2 stages must
+    split it evenly; XLA pads instead); a mesh that is not the world size
     (parallel/mesh.py); for `train=True`, a `train.remat` other than
     'none', 'seams' or 'full'.
     """
@@ -370,6 +376,8 @@ def resolve_plan(config: VoxelNetConfig, train: bool = False) -> Plan:
             "data.train_vfe_backend='planar' voxelizes on device — "
             "incompatible with train.host_voxelize (pipeline feeds "
             "pre-built (B, K, T, 7) buffers)")
+    if config.system.num_model_shards > 1:
+        _check_model_axis(config)
     procs = process_mesh(config.system)
     if config.train.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(
@@ -382,3 +390,30 @@ def resolve_plan(config: VoxelNetConfig, train: bool = False) -> Plan:
                 dtype=config.train.compute_dtype,
                 world_size=procs.world_size, rank=procs.rank,
                 middle=middle_path(data.middle_backend))
+
+
+def _check_model_axis(config: VoxelNetConfig) -> None:
+    """The refusals of a 'model' mesh axis (resolve_plan)."""
+    data, nm = config.data, config.system.num_model_shards
+    if data.middle_backend == "sparsebwd":
+        raise ValueError(
+            "data.middle_backend='sparsebwd' does not partition over "
+            "the spatial 'model' axis — use 'conv3d' (or 'auto') when "
+            "num_model_shards > 1")
+    if data.vfe_backend == "fused":
+        raise ValueError(
+            "data.vfe_backend='fused' does not partition over the "
+            "spatial 'model' axis — use 'xla' (or 'auto') when "
+            "num_model_shards > 1")
+    if data.dense_build == "pallas":
+        raise ValueError(
+            "data.dense_build='pallas' does not partition over a "
+            "mesh — use 'scatter' (or 'auto') on sharded configs")
+    _, wloc = slab(config.object.grid_size[2], nm, 0)
+    align = 4 * config.rpn.block1_stride
+    if wloc % align:
+        raise ValueError(
+            f"system.num_model_shards={nm} gives W slabs of {wloc} columns, "
+            f"not a multiple of rpn.block1_stride x 4 = {align}: the RPN's "
+            "stride-2 stages would split a slab unevenly (the JAX package "
+            "pads; the port refuses, ROADMAP.md queue 3)")

@@ -241,9 +241,11 @@ def plan_batches(num_examples: int, batch_size: int, shuffle: bool = True,
     epoch order up to batch_size (a dataset smaller than one batch wraps
     repeatedly); num_real counts the non-padding examples.
 
-    process_shard=(pid, nproc): per-process loading. batch_size is the
-    global batch and each process gets its contiguous row block; num_real
-    stays the global count.
+    process_shard=(data index, batch shards): per-process loading
+    (parallel/mesh.ProcessMesh.process_shard). batch_size is the global
+    batch and each batch shard gets its contiguous row block; the
+    processes of a model group share a data index and so load the same
+    rows; num_real stays the global count.
     """
     order = np.arange(num_examples)
     if shuffle:

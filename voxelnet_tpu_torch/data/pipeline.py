@@ -54,7 +54,8 @@ class LazyBatchIterator:
     order: workers tag each batch with its sequence number and the consumer
     reorders, so any worker count gives the same batch stream (on top of
     the dataset's per-(item, epoch) RNG). numpy releases the GIL for the
-    heavy parts (file IO, gathers, padding)."""
+    heavy parts (file IO, gathers, padding). `process_shard` is
+    plan_batches' per-process loading by data index."""
 
     _DONE = object()
 

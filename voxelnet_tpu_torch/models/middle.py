@@ -11,7 +11,16 @@ Conv weights are cast to the input's dtype at use (f32 master weights,
 as flax's `dtype`/`param_dtype`; a no-op on the inference copy, whose
 weights `prepare_for_inference` cast once). Train mode normalises with
 batch statistics in f32 (models/bn.py); eval mode with torch's BN on the
-running stats, or not at all once folded."""
+running stats, or not at all once folded.
+
+Under spatial sharding (`mesh`, a parallel/mesh.ProcessMesh with a model
+axis) each process holds one W slab (parallel/spatial.py): each Conv3d
+(W kernel 3, padding 1) runs with W padding 0 on its slab widened by a
+halo of one column a side, and sparse1's block 1 computes its slab's
+output columns from the whole voxel table, halo-free
+(`voxelnet_tpu/models/sparse_conv.py::sparse_conv3x3_sharded`). The BN
+statistics sum over the world: its processes hold disjoint slabs of
+disjoint rows, and halo columns never enter them."""
 
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ from torch.nn import functional as F
 
 from voxelnet_tpu_torch.models.bn import flax_batch_norm
 from voxelnet_tpu_torch.models.sparse_conv import sparse_conv3x3
+from voxelnet_tpu_torch.parallel.spatial import halo_exchange, slab
 
 # (cout, depth stride, depth pad) per block
 BLOCKS = ((64, 2, 1), (64, 1, 0), (64, 2, 1))
@@ -39,22 +49,31 @@ class ConvBlock3D(nn.Module):
                                 padding=(pad_d, 1, 1))
         self.BatchNorm_0 = nn.BatchNorm3d(cout, eps=1e-5, momentum=0.1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
+        """x (B, C, D, H, W), or this process's W slab of it under a
+        model axis of `mesh`."""
         conv = self.Conv_0
+        padding = conv.padding
+        if mesh is not None:
+            x = halo_exchange(x, 1, 1, mesh.model_group)
+            padding = padding[:2] + (0,)
         y = F.conv3d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
-                     conv.stride, conv.padding)
+                     conv.stride, padding)
         return bn_relu(self.BatchNorm_0, y, x.dtype)
 
-    def from_table(self, feat, coords, counts, occ) -> torch.Tensor:
+    def from_table(self, feat, coords, counts, occ,
+                   w_window=None) -> torch.Tensor:
         """The block on the zero-backed voxel table (B, K, C) with its
         occupancy map: sparse conv (f32 bias), BN, ReLU -> NCDHW indices
-        over NDHWC memory, as `forward` returns. Once the BN is folded
-        away (bn_fold.py), the ReLU runs in the sum's store instead of a
-        pass of its own."""
+        over NDHWC memory, as `forward` returns; only the output columns
+        of w_window=(x0, wloc) where given. Once the BN is folded away
+        (bn_fold.py), the ReLU runs in the sum's store instead of a pass
+        of its own."""
         conv = self.Conv_0
         folded = self.BatchNorm_0 is None
         y = sparse_conv3x3(feat, coords, counts, occ, conv.weight, conv.bias,
-                           conv.stride[0], conv.padding[0], relu=folded)
+                           conv.stride[0], conv.padding[0], w_window,
+                           relu=folded)
         y = y.permute(0, 4, 1, 2, 3)
         return y if folded else bn_relu(self.BatchNorm_0, y, feat.dtype)
 
@@ -78,26 +97,33 @@ class MiddleLayers(nn.Module):
                             ConvBlock3D(cin, cout, stride, pad))
             cin = cout
 
-    def forward(self, dense: torch.Tensor) -> torch.Tensor:
-        """dense (B, D, H, W, C) -> BEV (B, C' * D', H, W).
+    def forward(self, dense: torch.Tensor, mesh=None) -> torch.Tensor:
+        """dense (B, D, H, W, C) -> BEV (B, C' * D', H, W); under a model
+        axis of `mesh`, this process's W slab of each.
 
         The grid enters the convs as a permuted view: NCDHW indices over
         NDHWC memory (channels_last_3d), no copy."""
         x = dense.permute(0, 4, 1, 2, 3)
         for block in self.children():
-            x = block(x)
+            x = block(x, mesh)
         return _bev(x)
 
     def from_table(self, feat: torch.Tensor, coords: torch.Tensor,
-                   counts: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+                   counts: torch.Tensor, occ: torch.Tensor,
+                   mesh=None) -> torch.Tensor:
         """sparse1: voxel table feat (B, K, C) in the compute type, int32
         coords (B, K, 3) and counts (B, K), and their occupancy map
-        (B, D, H, W) -> BEV (B, C' * D', H, W); block 1 from the table,
-        blocks 2-3 and the fold as `forward`."""
+        (B, D, H, W) of the whole grid -> BEV (B, C' * D', H, W); block 1
+        from the table, blocks 2-3 and the fold as `forward`. Under a
+        model axis of `mesh`, block 1 computes this process's W slab
+        (whose taps read the map's columns on either side of it)."""
         first, *rest = self.children()
-        x = first.from_table(feat, coords, counts, occ)
+        window = None
+        if mesh is not None:
+            window = slab(occ.shape[-1], mesh.num_model, mesh.model_index)
+        x = first.from_table(feat, coords, counts, occ, window)
         for block in rest:
-            x = block(x)
+            x = block(x, mesh)
         return _bev(x)
 
 

@@ -44,19 +44,21 @@ class VFELayer(nn.Module):
         self.bn = nn.BatchNorm1d(cout // 2, eps=1e-5, momentum=0.1)
         self.bn_over_padding = bn_over_padding
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                group=None) -> torch.Tensor:
         """x (B, K, T, cin), mask (B, K, T, 1) bool -> (B, K, T, cout) in
         x's dtype. The Dense runs in x's dtype on f32 master weights cast
-        at use; the BN's statistics and the max cover the stored points
-        only, or every slot with bn_over_padding."""
+        at use; the BN's statistics (summed over `group`, default the
+        world) and the max cover the stored points only, or every slot
+        with bn_over_padding."""
         dtype = x.dtype
         y = torch.relu(nn.functional.linear(x, self.fcn.weight.to(dtype),
                                             self.fcn.bias.to(dtype)))
         if self.bn_over_padding:
-            y = flax_batch_norm(self.bn, y, -1).to(dtype)
+            y = flax_batch_norm(self.bn, y, -1, group=group).to(dtype)
             agg = y.amax(dim=2, keepdim=True)
         else:
-            y = flax_batch_norm(self.bn, y, -1, mask).to(dtype)
+            y = flax_batch_norm(self.bn, y, -1, mask, group).to(dtype)
             agg = _masked_max(y, mask)
         return torch.cat([y, agg.expand_as(y)], dim=-1) * mask.to(dtype)
 
@@ -88,14 +90,16 @@ class FeatureLearningNet(nn.Module):
                          prep.counts, w1, a1, w2, a2, self.points_per_voxel)
 
     def table(self, features: torch.Tensor, counts: torch.Tensor,
-              dtype: torch.dtype) -> torch.Tensor:
+              dtype: torch.dtype, group=None) -> torch.Tensor:
         """features (B, K, T, 7) f32, counts (B, K) -> (B, K, 128) in
-        `dtype` (the compute dtype), zero for empty voxels."""
+        `dtype` (the compute dtype), zero for empty voxels. Train-mode BN
+        statistics sum over `group`: the data group where a model group
+        replicates the table (parallel/mesh.py), else the world (None)."""
         T = features.shape[2]
         mask = (torch.arange(T, device=features.device)
                 < counts[..., None])[..., None]
-        x = self.vfe1(features.to(dtype), mask)
-        x = self.vfe2(x, mask)
+        x = self.vfe1(features.to(dtype), mask, group)
+        x = self.vfe2(x, mask, group)
         # with bn_over_padding the zero rows take part: each channel >= 0
         voxelwise = (x.amax(dim=2) if self.bn_over_padding
                      else _masked_max(x, mask)[:, :, 0])

@@ -9,6 +9,14 @@ dense-grid kernel, the Conv3D middle stack, the RPN, sigmoid + anchor
 decode, and score gate + top-k + rotated-BEV NMS. `VoxelNet.forward` is
 the flax module's `__call__` on an explicit voxel table, in whatever mode
 the module is in: the train and eval steps (training/train_step.py) run it.
+
+Under `system.num_model_shards = M > 1` (the JAX model's `spatial_shard`
+and `num_model`) the M processes of a model group (parallel/mesh.py) hold
+the same rows: each runs the VFE and the voxel table whole, then only its
+W slab of the dense grid (or of sparse1's block 1), the middle and the
+RPN, with halo exchanges between neighbours, and gathers the heads' maps
+whole (parallel/spatial.py); decode, NMS, targets and the loss run
+replicated.
 """
 
 from __future__ import annotations
@@ -38,15 +46,28 @@ from voxelnet_tpu_torch.ops import box_coding, nms
 from voxelnet_tpu_torch.ops.anchors import anchors_flat
 from voxelnet_tpu_torch.ops.voxelize import (VoxelGridSpec, prepare,
                                              voxelize_table)
+from voxelnet_tpu_torch.parallel.mesh import ProcessMesh, process_mesh
+from voxelnet_tpu_torch.parallel.spatial import slab
 
 STAGES = ("prepare", "vfe", "dense", "middle", "rpn", "decode", "nms")
 
 
+def model_mesh(config: VoxelNetConfig) -> ProcessMesh | None:
+    """The process mesh of a config with a model axis, None without one
+    (then nothing is sharded spatially)."""
+    if config.system.num_model_shards == 1:
+        return None
+    return process_mesh(config.system)
+
+
 class VoxelNet(nn.Module):
-    """Parameter tree of the flax VoxelNet: feature_net, middle, rpn."""
+    """Parameter tree of the flax VoxelNet: feature_net, middle, rpn. With
+    a model axis in `config.system`, the running process group's mesh is
+    read when the module is built (and must be up)."""
 
     def __init__(self, config: VoxelNetConfig):
         super().__init__()
+        self.mesh = model_mesh(config)
         obj = config.object
         self.grid_dzyx = tuple(obj.grid_size)
         self.compute_dtype = getattr(torch, config.train.compute_dtype)
@@ -79,20 +100,33 @@ class VoxelNet(nn.Module):
 
     def _forward(self, features, coords, counts):
         seams = self.remat == "seams" and torch.is_grad_enabled()
-        voxelwise = self.feature_net.table(features, counts,
-                                           self.compute_dtype)
+        mesh = self.mesh
+        voxelwise = self.feature_net.table(
+            features, counts, self.compute_dtype,
+            None if mesh is None else mesh.data_group)
         if seams:
             bev = _recomputed(self._middle, voxelwise, coords, counts)
-            return _recomputed(self.rpn, bev)
-        return self.rpn(self._middle(voxelwise, coords, counts))
+            return _recomputed(self.rpn, bev, mesh)
+        return self.rpn(self._middle(voxelwise, coords, counts), mesh)
 
     def _middle(self, voxelwise, coords, counts):
+        mesh = self.mesh
         if self.middle_path == "sparse1":
             occ = occupancy_map(coords, counts, self.grid_dzyx)
-            return self.middle.from_table(voxelwise, coords, counts, occ)
+            return self.middle.from_table(voxelwise, coords, counts, occ,
+                                          mesh)
         dense = scatter_to_dense_streamed(voxelwise, coords, counts,
-                                          self.grid_dzyx)
-        return self.middle(dense)
+                                          self.grid_dzyx,
+                                          w_window(self.grid_dzyx, mesh))
+        return self.middle(dense, mesh)
+
+
+def w_window(grid_dzyx, mesh: ProcessMesh | None):
+    """(x0, wloc) of this process's W slab of the grid under a model axis
+    of `mesh`, None without one."""
+    if mesh is None:
+        return None
+    return slab(grid_dzyx[2], mesh.num_model, mesh.model_index)
 
 
 def _recomputed(fn, *args):
@@ -172,7 +206,10 @@ def make_inference_fn(config: VoxelNetConfig,
     The model's weights are folded and cast at the first call with it and
     again only after a parameter or buffer changes in place. `marks`: a
     list that receives (stage, CUDA event or host time) after each stage
-    of STAGES, for per-stage timing.
+    of STAGES, for per-stage timing. With a model axis in
+    `config.system`, every process of a model group calls fn on the same
+    points; each computes its W slab of the grid, middle and RPN, and all
+    return the same detections.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -185,6 +222,7 @@ def make_inference_fn(config: VoxelNetConfig,
     obj, rpn_cfg = config.object, config.rpn
     max_voxels = config.data.max_voxels
     table_vfe = config.compat.bn_over_padding
+    mesh = model_mesh(config)
     cache: dict = {}
 
     def prepared(model: VoxelNet) -> VoxelNet:
@@ -228,14 +266,15 @@ def make_inference_fn(config: VoxelNetConfig,
             occ = occupancy_map(coords, counts, obj.grid_size)
             mark(marks, "dense", device)
             bev = net.middle.from_table(voxelwise.to(dtype), coords, counts,
-                                        occ)
+                                        occ, mesh)
         else:
             dense = scatter_to_dense_streamed(voxelwise, coords, counts,
-                                              obj.grid_size)
+                                              obj.grid_size,
+                                              w_window(obj.grid_size, mesh))
             mark(marks, "dense", device)
-            bev = net.middle(dense.to(dtype))
+            bev = net.middle(dense.to(dtype), mesh)
         mark(marks, "middle", device)
-        cls_logits, reg = net.rpn(bev)
+        cls_logits, reg = net.rpn(bev, mesh)
         mark(marks, "rpn", device)
         b = cls_logits.shape[0]
         probs = torch.sigmoid(cls_logits).reshape(b, -1)

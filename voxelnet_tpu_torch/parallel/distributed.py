@@ -2,8 +2,9 @@
 `voxelnet_tpu/parallel/distributed.py`.
 
 The JAX step is one program over the global batch that a mesh only places;
-here every process runs the same step on its own rows of the global batch,
-and the places where the global batch meets are collectives:
+here every process runs the same step on its part of the global batch, and
+the places where the parts meet are collectives, each over a `Group` of
+processes (parallel/mesh.py lays the groups out):
 
   * `all_reduce_sum` (forward and backward a SUM all-reduce): the
     BatchNorm statistics of train mode (models/bn.py);
@@ -11,6 +12,8 @@ and the places where the global batch meets are collectives:
     of the train and eval steps (training/train_step.py). The loss is a
     sum over frames, so the global gradient is the SUM of the processes'
     gradients, not their mean;
+  * the halo exchanges and the gather of a W-sharded grid
+    (parallel/spatial.py), over a model group;
   * `broadcast_state_`: the model's parameters and buffers and the
     optimizer's momentum trace from rank 0, after init and after a
     restore;
@@ -18,7 +21,7 @@ and the places where the global batch meets are collectives:
 
 Only all_reduce, broadcast and barrier are used: gloo has them for CUDA
 tensors too, so two ranks can share one card over gloo where NCCL refuses
-("Duplicate GPU detected"). Without a process group, or in a world of
+("Duplicate GPU detected"). Without a process group, or over a group of
 one, every helper is the identity (a mesh of size 1 is free).
 """
 
@@ -26,8 +29,8 @@ from __future__ import annotations
 
 import datetime
 import os
+from typing import NamedTuple
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -37,10 +40,48 @@ ENV_NUM_PROCESSES = "VOXELNET_NUM_PROCESSES"
 ENV_PROCESS_ID = "VOXELNET_PROCESS_ID"
 DEFAULT_TIMEOUT_S = 600.0
 
-# all-reduces this process issued and their payload bytes: read and reset
-# by the caller, as the kernels' launch counts are
-all_reduces = 0
-all_reduce_bytes = 0
+# the all-reduces this process issued, by the name of the group they ran
+# over: [count, payload bytes]; read by the caller and cleared by
+# reset_counts(), as the kernels' launch counts are
+all_reduce_counts: dict[str, list[int]] = {}
+# the torch process groups of make_group, by their ranks
+_handles: dict[tuple[int, ...], object] = {}
+
+
+class Group(NamedTuple):
+    """The processes a collective runs over: a name for the counters and
+    the ranks, ascending. The torch process group behind it is made once
+    by make_group (or is the world's), so a Group can be copied and
+    pickled."""
+
+    name: str
+    ranks: tuple[int, ...]
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def index(self) -> int:
+        """This process's position in the group."""
+        return self.ranks.index(rank())
+
+
+def world_group() -> Group:
+    return Group("world", tuple(range(world_size())))
+
+
+def make_group(name: str, ranks) -> Group:
+    """A Group of `ranks`. Its torch process group is made at the first
+    call for those ranks: every process must make every group, members or
+    not, in the same order (torch.distributed.new_group)."""
+    ranks = tuple(sorted(ranks))
+    if len(ranks) > 1 and ranks not in _handles:
+        _handles[ranks] = dist.new_group(list(ranks))
+    return Group(name, ranks)
+
+
+def reset_counts() -> None:
+    all_reduce_counts.clear()
 
 
 def launched() -> bool:
@@ -112,7 +153,9 @@ def initialize(coordinator_address: str | None = None,
 
 
 def shutdown() -> None:
-    """Destroy the process group, if one is up."""
+    """Destroy the process group and the groups made in it, if one is
+    up."""
+    _handles.clear()
     if is_initialized():
         dist.destroy_process_group()
 
@@ -138,58 +181,60 @@ def barrier() -> None:
         dist.barrier()
 
 
-def process_shard() -> tuple[int, int] | None:
-    """(rank, world) for per-process loading (data/dataset.plan_batches),
-    None in a world of one."""
-    return (rank(), world_size()) if world_size() > 1 else None
-
-
-def local_num_real(num_real: int, batch_size: int) -> int:
-    """The real (non-padding) frames among this process's rows of a
-    global batch of `batch_size` rows whose first `num_real` are real."""
-    local = batch_size // world_size()
-    return int(np.clip(num_real - rank() * local, 0, local))
-
-
-def _all_reduce(t: torch.Tensor) -> None:
-    global all_reduces, all_reduce_bytes
-    all_reduces += 1
-    all_reduce_bytes += t.numel() * t.element_size()
-    dist.all_reduce(t)
+def all_reduce_in_place(t: torch.Tensor, group: Group) -> None:
+    """SUM all-reduce of the contiguous `t` over `group`, counted. Every
+    process of the world calls it only where every member of the group
+    does, in the same order."""
+    counts = all_reduce_counts.setdefault(group.name, [0, 0])
+    counts[0] += 1
+    counts[1] += t.numel() * t.element_size()
+    if group.size == world_size():
+        dist.all_reduce(t)
+        return
+    if group.ranks not in _handles:
+        raise RuntimeError(f"group {group.name} {group.ranks} was not made "
+                           "in this process group (distributed.make_group)")
+    dist.all_reduce(t, group=_handles[group.ranks])
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """y = the SUM of x over the processes; the gradient of x is the SUM
-    of the processes' gradients of y."""
+    """y = the SUM of x over the group; the gradient of x is the SUM of
+    the group's gradients of y."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.clone(memory_format=torch.contiguous_format)
-        _all_reduce(y)
+        all_reduce_in_place(y, group)
         return y
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone(memory_format=torch.contiguous_format)
-        _all_reduce(grad)
-        return grad
+        all_reduce_in_place(grad, ctx.group)
+        return grad, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """Differentiable SUM over the processes; x itself in a world of one."""
-    if world_size() == 1:
+def all_reduce_sum(x: torch.Tensor, group: Group | None = None
+                   ) -> torch.Tensor:
+    """Differentiable SUM over `group` (default the world); x itself over
+    a group of one."""
+    group = group or world_group()
+    if group.size == 1:
         return x
-    return _AllReduceSum.apply(x)
+    return _AllReduceSum.apply(x, group)
 
 
-def all_reduce_(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
-    """The SUM over the processes of each tensor, through one all-reduce
-    of their flat concatenation (all of one dtype). Returns new tensors
-    (the inputs themselves in a world of one)."""
-    if world_size() == 1 or not tensors:
+def all_reduce_(tensors: list[torch.Tensor],
+                group: Group | None = None) -> list[torch.Tensor]:
+    """The SUM over `group` (default the world) of each tensor, through one
+    all-reduce of their flat concatenation (all of one dtype). Returns new
+    tensors (the inputs themselves over a group of one)."""
+    group = group or world_group()
+    if group.size == 1 or not tensors:
         return list(tensors)
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    _all_reduce(flat)
+    all_reduce_in_place(flat, group)
     return [part.view_as(t) for part, t in zip(
         flat.split([t.numel() for t in tensors]), tensors)]
 

@@ -18,6 +18,11 @@ the SUM of the processes' gradients (the loss is a sum over frames), one
 all-reduce of one flat buffer of all of them before the clip, and metrics
 summed over the global batch (one more all-reduce of the metric vector).
 Every process then holds the same gradient and takes the same update.
+Under a 'model' axis (parallel/mesh.py) the processes of a model group
+hold the same rows and each computes the gradient of its W slab (the
+heads' maps are gathered whole, so each computes the whole, same loss):
+the gradient still sums over the world, but the metrics sum over the
+data group only, or they would count each frame once per slab.
 
 A batch is a dict of numpy arrays or tensors with the JAX step's keys:
 `points` (B, N, 4) f32 or int16 wire format with `num_points` (B,), or
@@ -40,6 +45,7 @@ from voxelnet_tpu_torch.ops.voxelize import (VoxelGridSpec,
                                              dequantize_points_i16,
                                              voxelize_table)
 from voxelnet_tpu_torch.parallel import distributed
+from voxelnet_tpu_torch.parallel.mesh import process_mesh
 from voxelnet_tpu_torch.training.optim import (ClippedSGD, OptState,
                                                make_optimizer)
 
@@ -136,13 +142,14 @@ def _loss_frames(config: VoxelNetConfig, cls_logits, reg,
 
 
 def _global_metrics(frames: losses.RPNLoss, names: tuple[str, ...],
-                    extra: dict) -> dict:
+                    extra: dict, group) -> dict:
     """The loss terms `names` and the `extra` counts, summed over the
-    global batch: one stacked f64 vector, one all-reduce. Loss terms come
-    back as f32 0-d tensors, counts as int64."""
+    global batch: one stacked f64 vector, one all-reduce over `group` (the
+    data group; None: the world). Loss terms come back as f32 0-d
+    tensors, counts as int64."""
     vec = torch.stack([losses.sum_frames(getattr(frames, n)) for n in names]
                       + [v.to(torch.float64) for v in extra.values()])
-    vec = distributed.all_reduce_([vec])[0]
+    vec = distributed.all_reduce_([vec], group)[0]
     metrics = dict(zip(names, vec[:len(names)].to(torch.float32).unbind()))
     metrics.update(zip(extra, vec[len(names):].to(torch.int64).unbind()))
     return metrics
@@ -163,6 +170,7 @@ def make_train_step(config: VoxelNetConfig, device="cuda",
     (stage, CUDA event or host time) at the start and after each stage of
     TRAIN_STAGES ("all_reduce": the gradient's, nothing in one process)."""
     resolve_plan(config, train=True)
+    data_group = process_mesh(config.system).data_group
     device = _device(device)
     inputs = _Inputs(config, device)
     optimizer = optimizer or make_optimizer(config, steps_per_epoch)
@@ -191,7 +199,8 @@ def make_train_step(config: VoxelNetConfig, device="cuda",
         with torch.no_grad():
             metrics = _global_metrics(
                 frames, LOSS_METRICS,
-                {} if clipped is None else {"voxels_clipped": clipped})
+                {} if clipped is None else {"voxels_clipped": clipped},
+                data_group)
         metrics["grad_norm"] = grad_norm
         return state, metrics
 
@@ -204,6 +213,7 @@ def make_eval_step(config: VoxelNetConfig, device="cuda"):
     14) of this process's rows), the model in eval mode (running BN
     stats: no collective in the forward), no gradients."""
     resolve_plan(config)
+    data_group = process_mesh(config.system).data_group
     device = _device(device)
     inputs = _Inputs(config, device)
 
@@ -214,7 +224,7 @@ def make_eval_step(config: VoxelNetConfig, device="cuda"):
         maps = inputs.targets(batch)
         cls_logits, reg = model(features, coords, counts)
         frames = _loss_frames(config, cls_logits, reg, maps)
-        metrics = _global_metrics(frames, EVAL_METRICS, {})
+        metrics = _global_metrics(frames, EVAL_METRICS, {}, data_group)
         return metrics, torch.sigmoid(cls_logits), reg
 
     return step

@@ -20,9 +20,13 @@ batch (`num_real` stays global); the steps' BN statistics, gradients and
 metrics are global, so every process takes the same update and sees the
 same val loss and best-checkpoint decision; `config.yaml`, TensorBoard,
 prints and checkpoints come from rank 0 (every rank restores, and waits
-at a barrier after each save); label dumps are per process, each of the
-frames it loaded, the sweep stopping on the global frame count; a
-profiler trace is written per rank. The exp dir must be given
+at a barrier after each save); label dumps are per batch shard, each of
+the frames it loaded, the sweep stopping on the global frame count; a
+profiler trace is written per rank. Under a 'model' axis
+(`system.num_model_shards > 1`, parallel/mesh.py) the processes of a
+model group load the same rows (by their data index) and compute one W
+slab each; only the first of them (model index 0) writes the group's
+label files and images, so none is written twice. The exp dir must be given
 (`exp_dir`): numbering one would race. Unlike the JAX multi-host trainer,
 the staging thread stays: it only copies to the device and issues no
 collective, while the main thread issues every collective in the same
@@ -62,6 +66,7 @@ from voxelnet_tpu_torch.ops.anchors import anchors_flat
 from voxelnet_tpu_torch.ops.voxelize import (POINT_I16_SCALES,
                                              quantize_points_i16)
 from voxelnet_tpu_torch.parallel import distributed
+from voxelnet_tpu_torch.parallel.mesh import process_mesh
 from voxelnet_tpu_torch.training import checkpoint as ckpt_lib
 from voxelnet_tpu_torch.training.train_step import (_device, create_train_state,
                                                     make_eval_step,
@@ -226,7 +231,8 @@ class Trainer:
         self.config = config
         self.device = _device(device)
         self._is_main = plan.rank == 0
-        self._shard = distributed.process_shard()
+        self.mesh = process_mesh(config.system)
+        self._shard = self.mesh.process_shard()
         if exp_dir is not None:
             self.exp_dir = exp_dir
             for sub in ("checkpoints", "logs", "vis", "preds"):
@@ -586,8 +592,8 @@ class Trainer:
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
-        worker = (f"rank{distributed.rank()}" if self._shard is not None
-                  else None)
+        worker = (f"rank{distributed.rank()}"
+                  if self.mesh.world_size > 1 else None)
         profiler = profile(activities=activities, on_trace_ready=(
             tensorboard_trace_handler(os.path.join(self.exp_dir, "logs"),
                                       worker_name=worker)))
@@ -600,10 +606,13 @@ class Trainer:
         <exp_dir>/preds/<epoch + 1>/data, the count of frames whose
         candidates exceeded rpn.nms_pre_topk, and image triplets of the
         first `num_vis_dump` frames this process dumps in <exp_dir>/vis/
-        <epoch + 1> (see _dump_vis_triplet). Several processes each write
-        the frames they loaded; `max_frames` counts global frames, so every
+        <epoch + 1> (see _dump_vis_triplet). Several batch shards each
+        write the frames they loaded (in a model group, its process of
+        model index 0 alone: every member runs the sweep's steps, which
+        exchange halos); `max_frames` counts global frames, so every
         process stops after the same batch."""
         cfg = self.config
+        writes = self.mesh.model_index == 0
         t0 = time.perf_counter()
         out_dir = os.path.join(self.exp_dir, "preds", str(epoch + 1), "data")
         os.makedirs(out_dir, exist_ok=True)
@@ -623,10 +632,13 @@ class Trainer:
             boxes, scores, valid, n_cand = (
                 t.cpu().numpy() for t in (det.boxes, det.scores, det.valid,
                                           n_cand))
-            num_real = distributed.local_num_real(batch["num_real"],
-                                                  cfg.val.batch_size)
+            num_real = self.mesh.local_num_real(batch["num_real"],
+                                                cfg.val.batch_size)
             nms_saturated += int((n_cand[:num_real]
                                   > cfg.rpn.nms_pre_topk).sum())
+            if not writes:
+                seen += num_real
+                continue
             host_probs = (probs.float().cpu().numpy()
                           if vis_count < num_vis_dump else None)
             for b, tag in enumerate(batch["tags"][:num_real]):
@@ -645,10 +657,11 @@ class Trainer:
                     vis_count += 1
                 seen += 1
         self.timings["val_dump_s"].append(time.perf_counter() - t0)
-        self.timings["val_dump_frames"].append(seen)
+        self.timings["val_dump_frames"].append(seen if writes else 0)
         if self._shard is not None:
             seen, nms_saturated = (int(v) for v in distributed.all_reduce_(
-                [torch.tensor([seen, nms_saturated], device=self.device)])[0])
+                [torch.tensor([seen, nms_saturated], device=self.device)],
+                self.mesh.data_group)[0])
         if nms_saturated and self._is_main:
             print(f"[saturation] nms_pre_topk dropped candidates on "
                   f"{nms_saturated}/{seen} val frames — consider raising "
