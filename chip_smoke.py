@@ -131,7 +131,10 @@ Phases, each fatal on failure:
      2 -m voxelnet_tpu_torch.cli.train` with `system.num_model_shards: 2`
      for one epoch on phase 6's tree: one checkpoint, one label file a val
      frame, cli.eval over them; (e) where torch sees two cards or more,
-     (a) over NCCL (and (b) on four), else it says it did not run.
+     (a) over NCCL (and (b) on four), else it says it did not run; (f)
+     uneven W slabs, as (a): Car conv3d on 1 x 3 (120/120/112 columns)
+     and Pedestrian sparse1 on 1 x 4 (64/64/56/56), inference B=8, and
+     (c)'s tiny f32 step on 1 x 3 (24/24/16).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing it when
 torch sees no CUDA device or any check fails.
@@ -167,11 +170,12 @@ from voxelnet_tpu_torch.kernels import (_build, dense_build, run_copy,
 from voxelnet_tpu_torch.models.init import randomize_bn_
 from voxelnet_tpu_torch.models.sparse_conv import weight_matrix
 from voxelnet_tpu_torch.models.voxelnet import (STAGES, build_model,
-                                                make_inference_fn)
+                                                make_inference_fn, w_window)
 from voxelnet_tpu_torch.ops.voxelize import (VoxelGridSpec, prepare,
                                              resolve_host_voxelizer,
                                              voxelize_np, voxelize_table)
 from voxelnet_tpu_torch.parallel import distributed
+from voxelnet_tpu_torch.parallel.mesh import ProcessMesh
 from voxelnet_tpu_torch.training.train_step import (TRAIN_STAGES,
                                                     create_train_state,
                                                     make_train_step)
@@ -987,11 +991,12 @@ def phase_trainer_timing(frames, device, seed, tmp, card, step_fps):
           f"{t['checkpoint_s'][1] * 1e3} ms")
 
 
-def dp_config(overrides: dict, world: int, model: int = 1):
-    """The Car config of `overrides` on a mesh of `world` processes,
-    `model` of them a model group (spatial W-sharding), the rest data
-    shards."""
-    return get_config("Car", **dict(overrides, system={
+def dp_config(overrides: dict, world: int, model: int = 1,
+              class_name: str = "Car"):
+    """The `class_name` config of `overrides` on a mesh of `world`
+    processes, `model` of them a model group (spatial W-sharding), the
+    rest data shards."""
+    return get_config(class_name, **dict(overrides, system={
         "num_data_shards": world // model, "num_model_shards": model}))
 
 
@@ -1063,7 +1068,8 @@ def dp_run(run: dict, frames, device) -> dict:
 
 def spatial_infer_run(run: dict, frames, device, job_path: str) -> dict:
     """One spatially sharded inference run of a worker (phase 11): phase
-    4's model (the same seed) on `batch` vendored frames (cycled), each
+    4's model (the same seed; of run["class_name"], Car by default) on
+    `batch` vendored frames (cycled), each
     rank of a model group on the same rows; make_inference_fn's
     detections, its launch counts and all-reduces by group for one call,
     and the median end-to-end and stage times of `timed` calls (CUDA
@@ -1071,7 +1077,8 @@ def spatial_infer_run(run: dict, frames, device, job_path: str) -> dict:
     (whole W). Rank 0 saves the detections and maps to
     <job>.<name>.pt."""
     world, model = distributed.world_size(), run["model"]
-    config = dp_config(run["overrides"], world, model)
+    config = dp_config(run["overrides"], world, model,
+                       run.get("class_name", "Car"))
     net = make_model(config, device)
     infer = make_inference_fn(config, device)
     points, num = predict.stage_points(
@@ -2155,12 +2162,67 @@ def compare_maps(name: str, got, want, gate: str) -> dict:
     return out
 
 
+def check_spatial_infer(tag: str, run: dict, outs: list[dict], job: str,
+                        frames, device, card) -> dict:
+    """An inference run of phase 11 against one process on the card:
+    detections matched by score and box, the eval forward's maps within
+    MAP_GATES' bf16 shares of the spread, each rank's launches; prints
+    them with the all-reduces of a call by group and the call times ->
+    rank 0's launches."""
+    class_name = run.get("class_name", "Car")
+    middle = ("sparse1" if run["overrides"].get("data", {}).get(
+        "middle_backend") == "sparse1" else "conv3d")
+    config = get_config(class_name, **run["overrides"])
+    model = make_model(config, device)
+    points, num = stage_frames(config, frames, run["batch"])
+    want = make_inference_fn(config, device)(model, points, num)
+    saved = torch.load(f"{job}.{run['name']}.pt", weights_only=True)
+    got = type(want)(*saved["det"])
+    check_detections(got, config, run["batch"])
+    m = match_detections(got, want)
+    check(m["detections"] > 0 and m["sorted_score_gap"] <= MATCH_SCORE
+          and m["matched"] >= 0.5 * m["detections"],
+          f"{tag} {class_name} {middle}: sharded detections differ from "
+          f"one process's: {m}")
+    cls, reg = eval_maps(config, model, points, num, device)
+    maps = {"cls": compare_maps(f"{tag} {middle} cls", saved["cls"], cls,
+                                "bf16"),
+            "reg": compare_maps(f"{tag} {middle} reg", saved["reg"], reg,
+                                "bf16")}
+    del model
+    ran, idle = (("vfe_fused", "occupancy_map", "sparse_conv"),
+                 ("dense_build", "run_copy", "sparse_conv_grad")
+                 ) if middle == "sparse1" else (
+        ("vfe_fused", "dense_build"),
+        ("run_copy", "sparse_conv", "sparse_conv_grad", "occupancy_map"))
+    for r, o in enumerate(outs):
+        check_launched(f"{tag} {middle} rank {r}", o[run["name"]]
+                       ["launches"], ran, idle)
+    a = [o[run["name"]] for o in outs]
+    slabs = [w_window(config, ProcessMesh(run["model"], r, run["model"],
+                                          model_index=r))[1]
+             for r in range(run["model"])]
+    print(f"  {tag} {class_name} {middle}, bf16 B={run['batch']}, "
+          f"1 x {run['model']} (W slabs {slabs}): against one process, "
+          f"detections {m}; eval maps (shares of the spread) {maps}; "
+          f"launches per rank {[o['launches'] for o in a]}; all-reduces of "
+          f"a call by group [count, bytes] per rank "
+          f"{[o['all_reduces_by_group'] for o in a]}; median call "
+          f"{[o['stage_ms']['total'] for o in a]} ms per rank (gloo "
+          f"through the host, every rank on one card) [{card}]")
+    print("    rank 0 stages: " + ", ".join(
+        f"{k} {a[0]['stage_ms'][k]}" for k in STAGES) + " (ms)")
+    return a[0]["launches"]
+
+
 def phase_spatial(frames, device, seed, tmp, card) -> dict:
     """Phase 11 -> the launch counts of rank 0 of each sharded path."""
     print("[11] spatial W-sharding: 1 x 2 inference (Car bf16 B=8, conv3d "
           "and sparse1; tiny f32 maps) and 2 x 2 train steps (Car bf16 "
           "B=4, tiny f32) on cuda:0 over gloo, torchrun cli.train with "
-          "num_model_shards 2, NCCL where cards allow")
+          "num_model_shards 2, NCCL where cards allow; uneven slabs: Car "
+          "1 x 3 conv3d and Pedestrian 1 x 4 sparse1 inference B=8, tiny "
+          "f32 1 x 3 step")
     thres0 = {"rpn": {"score_thres": 0.0}}
     infer = {middle: {"name": f"infer-{middle}", "kind": "infer",
                       "overrides": merged(thres0, SPARSE1 if middle ==
@@ -2180,43 +2242,8 @@ def phase_spatial(frames, device, seed, tmp, card) -> dict:
     print(f"  (a) 2 ranks: {time.perf_counter() - t0} s with the ranks' "
           f"start")
     for middle, run in infer.items():
-        config = get_config("Car", **run["overrides"])
-        model = make_model(config, device)
-        points, num = stage_frames(config, frames, SPATIAL_BATCH)
-        want = make_inference_fn(config, device)(model, points, num)
-        saved = torch.load(f"{job}.{run['name']}.pt", weights_only=True)
-        got = type(want)(*saved["det"])
-        check_detections(got, config, SPATIAL_BATCH)
-        m = match_detections(got, want)
-        check(m["detections"] > 0 and m["sorted_score_gap"] <= MATCH_SCORE
-              and m["matched"] >= 0.5 * m["detections"],
-              f"(a) {middle}: sharded detections differ from one "
-              f"process's: {m}")
-        cls, reg = eval_maps(config, model, points, num, device)
-        maps = {"cls": compare_maps(f"(a) {middle} cls", saved["cls"], cls,
-                                    "bf16"),
-                "reg": compare_maps(f"(a) {middle} reg", saved["reg"], reg,
-                                    "bf16")}
-        del model
-        ran, idle = (("vfe_fused", "occupancy_map", "sparse_conv"),
-                     ("dense_build", "run_copy", "sparse_conv_grad")
-                     ) if middle == "sparse1" else (
-            ("vfe_fused", "dense_build"),
-            ("run_copy", "sparse_conv", "sparse_conv_grad", "occupancy_map"))
-        for r, o in enumerate(outs):
-            check_launched(f"(a) {middle} rank {r}", o[run["name"]]
-                           ["launches"], ran, idle)
-        a = [o[run["name"]] for o in outs]
-        launches[f"spatial_{middle}_inference_rank0"] = a[0]["launches"]
-        print(f"  (a) {middle}, Car bf16 B={SPATIAL_BATCH}, 1 x 2: against "
-              f"one process, detections {m}; eval maps (shares of the "
-              f"spread) {maps}; launches per rank "
-              f"{[o['launches'] for o in a]}; all-reduces of a call by "
-              f"group [count, bytes] {a[0]['all_reduces_by_group']}; median "
-              f"call {[o['stage_ms']['total'] for o in a]} ms per rank "
-              f"(gloo through the host, both ranks on one card) [{card}]")
-        print("    rank 0 stages: " + ", ".join(
-            f"{k} {a[0]['stage_ms'][k]}" for k in STAGES) + " (ms)")
+        launches[f"spatial_{middle}_inference_rank0"] = check_spatial_infer(
+            "(a)", run, outs, job, frames, device, card)
     config = get_config("Car", **TINY)
     model = make_model(config, device)
     points, num = stage_frames(config, frames, 2)
@@ -2325,6 +2352,33 @@ def phase_spatial(frames, device, seed, tmp, card) -> dict:
                          [o["car"] for o in outs], want["car"], 2e-2, 5e-2)
     else:
         print(f"  (e) NCCL across cards: not run, torch sees {cards} card")
+
+    # (f) uneven meshes: Car 1 x 3 conv3d (W slabs 120/120/112) and
+    # Pedestrian 1 x 4 sparse1 (64/64/56/56) inference, and (c)'s tiny f32
+    # step on 1 x 3 (24/24/16)
+    car3 = dict(infer["conv3d"], name="infer-car-1x3", model=3)
+    ped4 = dict(infer["sparse1"], name="infer-pedestrian-1x4", model=4,
+                class_name="Pedestrian")
+    tiny3 = dict(tiny, name="tiny3", model=3)
+    for world, runs in ((3, [car3, tiny3]), (4, [ped4])):
+        t0 = time.perf_counter()
+        name = f"spatial_uneven{world}"
+        outs = run_dp_workers(tmp, name, "gloo", "cuda:0", runs, world=world)
+        print(f"  (f) {world} ranks: {time.perf_counter() - t0} s with the "
+              f"ranks' start")
+        run = runs[0]
+        middle = "sparse1" if run is ped4 else "conv3d"
+        launches[f"spatial_{middle}_1x{world}_inference_rank0"] = (
+            check_spatial_infer("(f)", run, outs,
+                                os.path.join(tmp, f"{name}.json"), frames,
+                                device, card))
+        if tiny3 in runs:
+            check_dp_run("(c) tiny f32, 1 x 3 ranks, B=4",
+                         [o["tiny3"] for o in outs], want["tiny"], 1e-4,
+                         5e-3)
+            print(f"  (c) tiny 1 x 3: all-reduces of step 1 by group "
+                  f"[count, bytes] "
+                  f"{outs[0]['tiny3']['all_reduces_by_group']}")
     return launches
 
 

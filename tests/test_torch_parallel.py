@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 from torch_dp_worker import bn_case, step_case, trainer_case
-from torch_port_helpers import (TINY, configs, finish_workers,
+from torch_port_helpers import (TINY, configs, fake_group, finish_workers,
                                 init_scale_biases, jax_variables, merged,
                                 start_workers, step_batch, torch_model,
                                 write_mini_kitti)
@@ -144,16 +144,6 @@ def test_all_reduce_sum_forward_and_backward(dp):
     assert one.local_num_real(3, 4) == 3
 
 
-def _fake_group(monkeypatch, world: int, rank: int) -> None:
-    """A stand-in process group of `world` processes, this one `rank`:
-    torch's new_group only records that it was called."""
-    monkeypatch.setattr(distributed, "is_initialized", lambda: world > 1)
-    monkeypatch.setattr(distributed, "world_size", lambda: world)
-    monkeypatch.setattr(distributed, "rank", lambda: rank)
-    monkeypatch.setattr(distributed, "_handles", {})
-    monkeypatch.setattr(distributed.dist, "new_group", lambda ranks: ranks)
-
-
 @pytest.mark.parametrize("shards,world,want", [
     ({}, 1, (1, 0, 1, 0, 0)),
     ({"num_data_shards": 2}, 2, (2, 1, 1, 1, 0)),
@@ -167,7 +157,7 @@ def test_mesh_maps_batch_axes_onto_processes(monkeypatch, shards, world,
                                              want):
     """(world size, rank, model axis, data index, model index) of rank 1
     (rank 0 alone), and the plan's world size and rank."""
-    _fake_group(monkeypatch, world, min(1, world - 1))
+    fake_group(monkeypatch, world, min(1, world - 1))
     cfg = get_config("Car", system=shards)
     got = mesh.process_mesh(cfg.system)
     assert got[:5] == want
@@ -183,17 +173,25 @@ def test_mesh_maps_batch_axes_onto_processes(monkeypatch, shards, world,
     ({"num_model_shards": 2}, 1, "no torch.distributed process group"),
     ({"num_data_shards": 2, "num_model_shards": 2}, 2,
      "= 4, but 2 processes.*--nproc_per_node 4"),
-    ({"num_model_shards": 3}, 3, "W=352 must divide by num_model_shards=3"),
-    # Car's 352 columns in 8 slabs of 44: not a multiple of 2 x 4
-    ({"num_model_shards": 8}, 8, "multiple of rpn.block1_stride x 4 = 8"),
+    # JAX's sparse1 refusal; conv3d takes uneven slabs there
+    ({"num_model_shards": 3, "data": {"middle_backend": "sparse1"}}, 3,
+     "W=352 must divide by num_model_shards=3"),
+    # a grid of 350 columns is not a whole number of the RPN's units of
+    # 2 x 4 (Car's 352 in 8 slabs of 44 columns is cut 48 x 4, 40 x 4)
+    ({"num_model_shards": 8, "object": {"x_max": 70.0}}, 8,
+     "multiple of rpn.block1_stride x 4 = 8"),
     ({"num_data_shards": 2}, 1, "no torch.distributed process group"),
     ({"num_data_shards": 4}, 2, "--nproc_per_node 4"),
     ({}, 2, "system.num_data_shards: 2"),
 ])
 def test_mesh_refusals_say_what_to_do(monkeypatch, shards, world, match):
-    _fake_group(monkeypatch, world, 0)
+    """`shards` is the system section; another section of the config
+    rides under its own key."""
+    fake_group(monkeypatch, world, 0)
+    sections = {k: v for k, v in shards.items() if isinstance(v, dict)}
+    system = {k: v for k, v in shards.items() if k not in sections}
     with pytest.raises(ValueError, match=match):
-        resolve_plan(get_config("Car", system=shards))
+        resolve_plan(get_config("Car", system=system, **sections))
 
 
 @pytest.mark.parametrize("data,match", [
@@ -207,7 +205,7 @@ def test_model_axis_refuses_what_jax_refuses(monkeypatch, data, match):
     """The JAX resolvers' refusals under a 'model' axis, with their
     messages (`voxelnet_tpu/models/voxelnet.py:226-230, 393-397,
     434-445`); without the axis the same knobs resolve."""
-    _fake_group(monkeypatch, 2, 0)
+    fake_group(monkeypatch, 2, 0)
     with pytest.raises(ValueError, match=match):
         resolve_plan(get_config("Car", data=data,
                                 system={"num_model_shards": 2}))

@@ -27,9 +27,10 @@ import pytest
 import torch
 from torch_dp_worker import (CONV_KINDS, HALOS, conv_kind, conv_kind_grads,
                              step_case, trainer_case)
-from torch_port_helpers import (TINY, configs, finish_workers, jax_variables,
-                                merged, start_workers, step_batch,
-                                torch_model, write_mini_kitti)
+from torch_port_helpers import (TINY, configs, finish_workers,
+                                jax_variables, jax_voxel_table, merged,
+                                start_workers, step_batch, torch_model,
+                                write_mini_kitti)
 
 from voxelnet_tpu_torch.config import get_config
 from voxelnet_tpu_torch.models.voxelnet import build_model
@@ -77,27 +78,11 @@ def _inputs(tmp: str) -> dict:
         "batch": step_batch(cfg, seed=11, n=1800),
         "jax_variables": variables,
         "jax_state": torch_model(tcfg, variables).state_dict(),
-        "table": _voxel_table(jcfg, rng),
+        "table": jax_voxel_table(jcfg, rng),
         "kitti": write_mini_kitti(os.path.join(tmp, "kitti"), n_points=2000,
                                   splits=(("training", 8),
                                           ("validation", 3))),
     }
-
-
-def _voxel_table(jcfg, rng):
-    """JAX's voxel table of 4 random frames (numpy): features, coords,
-    counts."""
-    import jax.numpy as jnp
-
-    from torch_port_helpers import random_points
-    from voxelnet_tpu.ops.voxelize import VoxelGridSpec, voxelize_batch_jax
-
-    points, num = random_points(rng, jcfg, 4, 1500)
-    vox = voxelize_batch_jax(jnp.asarray(points), jnp.asarray(num),
-                             VoxelGridSpec.from_object_config(jcfg.object),
-                             jcfg.data.max_voxels)
-    return tuple(np.asarray(t) for t in (vox.features, vox.coords,
-                                         vox.counts))
 
 
 def _step(inputs, middle, model=1, remat=None) -> tuple:
@@ -198,11 +183,19 @@ def test_conv_kind_on_slabs_equals_the_whole_conv(spatial, world, name,
 
 
 def test_slab_refuses_a_width_that_does_not_divide():
+    """Equal slabs where the units divide among the ranks; uneven ones,
+    the first ranks a unit more, where they do not; empty ones past the
+    last unit; a width that is not a whole number of units refused."""
     assert slab(352, 2, 1) == (176, 176)
     assert slab(64, 4, 3) == (48, 16)
-    with pytest.raises(ValueError, match="W=352 must divide by "
-                                         "num_model_shards=3"):
-        slab(352, 3, 0)
+    assert slab(352, 2, 1, 8) == (176, 176)
+    assert [slab(352, 3, m, 8) for m in range(3)] == [(0, 120), (120, 120),
+                                                      (240, 112)]
+    assert [slab(48, 8, m, 8) for m in range(5, 8)] == [(40, 8), (48, 0),
+                                                        (48, 0)]
+    with pytest.raises(ValueError, match="W=350 must be a multiple of 8 "
+                                         "columns"):
+        slab(350, 3, 0, 8)
 
 
 # --- (ii) the port against itself --------------------------------------------

@@ -92,7 +92,10 @@ def step_case(overrides, state_dict, batch, double=False,
     broadcast_state_ gives every rank rank 0's; the traces are returned
     and held bit-identical across ranks too. With `evaluate`, the eval
     step runs first: its metrics, cls probabilities and reg maps, and
-    the all-reduces of the train step by group."""
+    the all-reduces of the train step by group. `update`: each
+    parameter's change over the steps (lr times the clipped global
+    gradient after one step), every gradient leaf to hold apart from the
+    parameter's own size."""
     cfg = config(overrides, model)
     net = VoxelNet(cfg)
     net.load_state_dict(state_dict)
@@ -115,6 +118,8 @@ def step_case(overrides, state_dict, batch, double=False,
         out.update(eval={k: float(v) for k, v in metrics.items()},
                    probs=probs, reg=reg)
     step = make_train_step(cfg, "cpu", steps_per_epoch, optimizer=optimizer)
+    before = {k: p.detach().clone()
+              for k, p in state.model.named_parameters()}
     distributed.reset_counts()
     for _ in range(steps):
         state, metrics = step(state, local)
@@ -122,6 +127,8 @@ def step_case(overrides, state_dict, batch, double=False,
     return dict(out, metrics={k: float(v) for k, v in metrics.items()},
                 state={k: v.detach().clone()
                        for k, v in state.model.state_dict().items()},
+                update={k: p.detach() - before[k]
+                        for k, p in state.model.named_parameters()},
                 trace=None if trace is None else [t.clone() for t in trace],
                 all_reduces={k: list(v) for k, v in
                              distributed.all_reduce_counts.items()},
@@ -208,56 +215,67 @@ class _SumGrad(torch.autograd.Function):
         return grad, None
 
 
-def slab_of(x, num: int, index: int):
-    """Slab `index` of `num` of the last axis of x."""
-    x0, w = spatial.slab(x.shape[-1], num, index)
-    return x[..., x0:x0 + w]
+def equal_widths(width: int, num: int) -> tuple[int, ...]:
+    """The widths of `spatial.slab`'s `num` slabs of `width` columns (in
+    units of one column)."""
+    return tuple(spatial.slab(width, num, i)[1] for i in range(num))
+
+
+def slab_of(x, widths, index: int):
+    """Slab `index` of the last axis of x cut into slabs of `widths`
+    columns (which tile it)."""
+    x0 = sum(widths[:index])
+    return x[..., x0:x0 + widths[index]]
 
 
 HALOS = ((1, 1), (1, 0), (0, 1), (2, 1))
 
 
-def gradcheck_case(ranks, seed: int) -> dict:
+def gradcheck_case(ranks, seed: int, widths=None) -> dict:
     """Over a group of `ranks` (every rank makes it; the others return
-    {}): for each halo of HALOS, halo_exchange's output on a slab of a
-    whole f64 X (1, 2, 2, 3M) against the slice of X zero-padded by the
-    halo, and torch.autograd.gradcheck of X -> gather_w(sum over the
-    taps s of the halo'd slab shifted by s, times random weights), the
-    whole input reaching each member's slab through _SumGrad; then
-    gradcheck of gather_w alone. -> name -> True/False."""
+    {}), member m holding widths[m] columns (default 3 each; a width is 0
+    or at least 2, the widest halo): for each halo of HALOS, halo_exchange's
+    output on a slab of a whole f64 X (1, 2, 2, sum(widths)) against the
+    slice of X zero-padded by the halo, and torch.autograd.gradcheck of
+    X -> gather_w(sum over the taps s of the halo'd slab shifted by s,
+    times random weights), the whole input reaching each member's slab
+    through _SumGrad; then gradcheck of gather_w alone. -> name ->
+    True/False."""
     group = distributed.make_group("units", ranks)
     if distributed.rank() not in ranks:
         return {}
     num, m = group.size, group.index()
+    widths = widths or (3,) * num
+    x0, width = sum(widths[:m]), sum(widths)
     gen = torch.Generator().manual_seed(seed)
-    X = torch.randn((1, 2, 2, 3 * num), generator=gen, dtype=torch.float64,
+    X = torch.randn((1, 2, 2, width), generator=gen, dtype=torch.float64,
                     requires_grad=True)
     out = {}
     for left, right in HALOS:
         taps = torch.randn((left + right + 1,) + X.shape, generator=gen,
                            dtype=torch.float64)
-        x = slab_of(X.detach(), num, m)
+        x = slab_of(X.detach(), widths, m)
         ext = spatial.halo_exchange(x, left, right, group)
-        x0 = m * x.shape[-1]
         want = F.pad(X.detach(), (left, right))[
             ..., x0:x0 + x.shape[-1] + left + right]
         out[f"halo{left}{right}-values"] = torch.equal(ext, want)
 
         def f(X, left=left, right=right, taps=taps):
-            x = slab_of(_SumGrad.apply(X, group), num, m)
+            x = slab_of(_SumGrad.apply(X, group), widths, m)
             ext = spatial.halo_exchange(x, left, right, group)
             w = x.shape[-1]
-            y = sum(ext[..., s:s + w] * slab_of(taps[s], num, m)
+            y = sum(ext[..., s:s + w] * slab_of(taps[s], widths, m)
                     for s in range(left + right + 1))
-            return spatial.gather_w(y, group)
+            return spatial.gather_w(y, x0, width, group)
 
         out[f"halo{left}{right}-gradcheck"] = torch.autograd.gradcheck(
             f, (X,), raise_exception=False)
     weight = torch.randn(X.shape, generator=gen, dtype=torch.float64)
     out["gather-gradcheck"] = torch.autograd.gradcheck(
         lambda X: spatial.gather_w(
-            slab_of(_SumGrad.apply(X, group), num, m)
-            * slab_of(weight, num, m), group), (X,), raise_exception=False)
+            slab_of(_SumGrad.apply(X, group), widths, m)
+            * slab_of(weight, widths, m), x0, width, group), (X,),
+        raise_exception=False)
     return out
 
 
@@ -287,25 +305,32 @@ def conv_kind(name: str, seed: int):
     return module, x, gen
 
 
-def conv_kind_grads(module, x, gen, mesh=None, slab=(1, 0)) -> dict:
-    """y = module(x) (x the whole input, or slab `slab` = (num, index) of
-    it under `mesh`) and the backward of sum(y * g), g drawn from `gen`
-    for the whole output and sliced alike: y, x's gradient, and the
-    weight's and bias's gradients (this member's part of them)."""
-    num, index = slab
-    x = slab_of(x, num, index).clone().requires_grad_()
+def conv_kind_grads(module, x, gen, mesh=None, widths=None,
+                    index: int = 0) -> dict:
+    """y = module(x) (x the whole input, or under `mesh` its slab `index`
+    of slabs of `widths` columns; every output level scales the widths
+    alike) and the backward of sum(y * g), g drawn from `gen` for the
+    whole output and sliced alike: y, x's gradient, and the weight's and
+    bias's gradients (this member's part of them)."""
+    width = x.shape[-1]
+    widths = widths or (width,)
+    with torch.no_grad():
+        out_shape = module(x).shape
+    out_widths = tuple(w * out_shape[-1] // width for w in widths)
+    x = slab_of(x, widths, index).clone().requires_grad_()
     y = module(x, mesh)
-    g = torch.randn(y.shape[:-1] + (y.shape[-1] * num,), generator=gen,
-                    dtype=y.dtype)
-    (y * slab_of(g, num, index)).sum().backward()
+    g = torch.randn(out_shape, generator=gen, dtype=y.dtype)
+    (y * slab_of(g, out_widths, index)).sum().backward()
     conv = next(c for c in module.children())
     return {"y": y.detach(), "x_grad": x.grad,
             "weight_grad": conv.weight.grad, "bias_grad": conv.bias.grad}
 
 
-def conv_kinds_case(ranks, seed: int) -> dict:
+def conv_kinds_case(ranks, seed: int, widths=None) -> dict:
     """Each of CONV_KINDS on the slabs of a group of `ranks` (every rank
-    makes it; the others return {}): conv_kind_grads of this member."""
+    makes it; the others return {}), member m holding widths[m] of the
+    input's columns (default `slab`'s equal slabs): conv_kind_grads of
+    this member."""
     group = distributed.make_group("kinds", ranks)
     if distributed.rank() not in ranks:
         return {}
@@ -313,7 +338,9 @@ def conv_kinds_case(ranks, seed: int) -> dict:
     mesh = ProcessMesh(world_size=distributed.world_size(),
                        rank=distributed.rank(), num_model=num,
                        model_index=m, model_group=group)
-    return {name: conv_kind_grads(*conv_kind(name, seed), mesh, (num, m))
+    return {name: conv_kind_grads(*conv_kind(name, seed), mesh,
+                                  widths or equal_widths(
+                                      CONV_KINDS[name][1][-1], num), m)
             for name in CONV_KINDS}
 
 

@@ -124,6 +124,21 @@ def random_points(rng, cfg, batch: int, n: int):
     return pts, np.full((batch,), n, np.int32)
 
 
+def jax_voxel_table(jcfg, rng, batch: int = 4, n: int = 1500):
+    """JAX's voxel table (`voxelize_batch_jax`) of `batch` random frames
+    of `n` points, as numpy: features, coords, counts."""
+    import jax.numpy as jnp
+
+    from voxelnet_tpu.ops.voxelize import VoxelGridSpec, voxelize_batch_jax
+
+    points, num = random_points(rng, jcfg, batch, n)
+    vox = voxelize_batch_jax(jnp.asarray(points), jnp.asarray(num),
+                             VoxelGridSpec.from_object_config(jcfg.object),
+                             jcfg.data.max_voxels)
+    return tuple(np.asarray(t) for t in (vox.features, vox.coords,
+                                         vox.counts))
+
+
 def step_batch(cfg, seed=0, n=1800):
     """A train-step batch of 2 frames: random points off the voxel
     lattice (the jitted JAX voxelizer bins lattice points by a reciprocal
@@ -207,6 +222,18 @@ def write_mini_kitti(root, splits=(("training", 4), ("validation", 2)),
             open(os.path.join(root, split, "image_2", f"{i:06d}.png"),
                  "wb").close()
     return root
+
+
+def fake_group(monkeypatch, world: int, rank: int = 0) -> None:
+    """A stand-in process group of `world` processes, this one `rank`:
+    torch's new_group only records that it was called."""
+    from voxelnet_tpu_torch.parallel import distributed
+
+    monkeypatch.setattr(distributed, "is_initialized", lambda: world > 1)
+    monkeypatch.setattr(distributed, "world_size", lambda: world)
+    monkeypatch.setattr(distributed, "rank", lambda: rank)
+    monkeypatch.setattr(distributed, "_handles", {})
+    monkeypatch.setattr(distributed.dist, "new_group", lambda ranks: ranks)
 
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -20,7 +20,6 @@ from typing import Any, Mapping, NamedTuple
 import numpy as np
 
 from voxelnet_tpu_torch.parallel.mesh import process_mesh
-from voxelnet_tpu_torch.parallel.spatial import slab
 from voxelnet_tpu_torch.utils import yaml_subset
 
 # mean KITTI calibration matrices (per-frame calib files override them)
@@ -351,10 +350,12 @@ def resolve_plan(config: VoxelNetConfig, train: bool = False) -> Plan:
     `train_vfe_backend='planar'` with `train.host_voxelize`; under a
     'model' axis (`num_model_shards > 1`, spatial W-sharding,
     parallel/spatial.py) `middle_backend='sparsebwd'`, an explicit
-    `vfe_backend='fused'` or `dense_build='pallas'`, a grid W that the
-    axis does not divide, or a W slab that is not a multiple of
-    `rpn.block1_stride` x 4 columns (the RPN's three stride-2 stages must
-    split it evenly; XLA pads instead); a mesh that is not the world size
+    `vfe_backend='fused'` or `dense_build='pallas'`, `sparse1` on a grid
+    W that the axis does not divide, or a grid W that is not a multiple
+    of `rpn.block1_stride` x 4 columns (the RPN cannot concatenate its
+    three maps then, sharded or not); every other M gets uneven slabs of
+    whole units of that many columns, where XLA pads, and M above the
+    units leaves the last ranks empty; a mesh that is not the world size
     (parallel/mesh.py); for `train=True`, a `train.remat` other than
     'none', 'seams' or 'full'.
     """
@@ -409,11 +410,15 @@ def _check_model_axis(config: VoxelNetConfig) -> None:
         raise ValueError(
             "data.dense_build='pallas' does not partition over a "
             "mesh — use 'scatter' (or 'auto') on sharded configs")
-    _, wloc = slab(config.object.grid_size[2], nm, 0)
-    align = 4 * config.rpn.block1_stride
-    if wloc % align:
+    width = config.object.grid_size[2]
+    if data.middle_backend == "sparse1" and width % nm:
         raise ValueError(
-            f"system.num_model_shards={nm} gives W slabs of {wloc} columns, "
-            f"not a multiple of rpn.block1_stride x 4 = {align}: the RPN's "
-            "stride-2 stages would split a slab unevenly (the JAX package "
-            "pads; the port refuses, ROADMAP.md queue 3)")
+            f"W={width} must divide by num_model_shards={nm} for the "
+            "sparse1 spatial sharding")
+    align = 4 * config.rpn.block1_stride
+    if width % align:
+        raise ValueError(
+            f"W={width} must be a multiple of rpn.block1_stride x 4 = "
+            f"{align} columns under system.num_model_shards={nm}: the "
+            "slabs are cut in those units, and the RPN cannot concatenate "
+            "its three maps otherwise")

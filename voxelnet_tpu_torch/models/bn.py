@@ -17,7 +17,8 @@ dtype=float32)` forward here, as the JAX package's modules use it:
     all-reduce, forward and backward, so every process normalises with,
     and moves its running stats by, the same global statistics. The group
     is the world where the processes hold disjoint parts (rows, or W slabs
-    of the middle and RPN under a model axis); the VFE's table is
+    of the middle and RPN under a model axis, uneven or empty: a process
+    of no columns adds n = 0 and still joins); the VFE's table is
     replicated in a model group, so its BN sums over the data group;
   * normalisation with that biased variance, in the wider of the input's
     type and f32: (x - mean) * (rsqrt(var + eps) * scale) + bias, returned

@@ -18,9 +18,11 @@ axis) each process holds one W slab (parallel/spatial.py): each Conv3d
 (W kernel 3, padding 1) runs with W padding 0 on its slab widened by a
 halo of one column a side, and sparse1's block 1 computes its slab's
 output columns from the whole voxel table, halo-free
-(`voxelnet_tpu/models/sparse_conv.py::sparse_conv3x3_sharded`). The BN
-statistics sum over the world: its processes hold disjoint slabs of
-disjoint rows, and halo columns never enter them."""
+(`voxelnet_tpu/models/sparse_conv.py::sparse_conv3x3_sharded`; the port's
+window is its own slab, not JAX's W/M). The BN statistics sum over the
+world: its processes hold disjoint slabs of disjoint rows, halo columns
+never enter them, and an empty slab adds n = 0. An empty slab runs no
+conv (`apply_conv`) but joins each halo exchange and BN all-reduce."""
 
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from torch.nn import functional as F
 
 from voxelnet_tpu_torch.models.bn import flax_batch_norm
 from voxelnet_tpu_torch.models.sparse_conv import sparse_conv3x3
-from voxelnet_tpu_torch.parallel.spatial import halo_exchange, slab
+from voxelnet_tpu_torch.parallel.spatial import halo_exchange, no_columns
 
 # (cout, depth stride, depth pad) per block
 BLOCKS = ((64, 2, 1), (64, 1, 0), (64, 2, 1))
@@ -52,13 +54,11 @@ class ConvBlock3D(nn.Module):
     def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
         """x (B, C, D, H, W), or this process's W slab of it under a
         model axis of `mesh`."""
-        conv = self.Conv_0
-        padding = conv.padding
+        padding, empty = self.Conv_0.padding, x.shape[-1] == 0
         if mesh is not None:
             x = halo_exchange(x, 1, 1, mesh.model_group)
             padding = padding[:2] + (0,)
-        y = F.conv3d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
-                     conv.stride, padding)
+        y = apply_conv(self.Conv_0, x, padding, empty)
         return bn_relu(self.BatchNorm_0, y, x.dtype)
 
     def from_table(self, feat, coords, counts, occ,
@@ -89,6 +89,28 @@ def bn_relu(bn, y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.relu(y).to(dtype)
 
 
+def apply_conv(module: nn.Module, x: torch.Tensor, padding=None,
+               empty: bool = False) -> torch.Tensor:
+    """The Conv2d, Conv3d or ConvTranspose2d `module` of x, its weights
+    cast to x's type, with `padding` (default the module's). `empty`: x
+    is an empty slab widened by its halo (or by none), so no conv runs
+    and the output, of no columns, is `no_columns`'s."""
+    weight, bias = module.weight.to(x.dtype), module.bias.to(x.dtype)
+    padding = module.padding if padding is None else padding
+    transposed = isinstance(module, nn.ConvTranspose2d)
+    if empty:
+        rows = [(n - 1) * s - 2 * p + k if transposed else
+                (n + 2 * p - k) // s + 1 for n, k, s, p in zip(
+                    x.shape[2:-1], module.kernel_size, module.stride,
+                    padding)]
+        cout = weight.shape[1 if transposed else 0]
+        return no_columns((x.shape[0], cout, *rows, 0), x, weight, bias)
+    if transposed:
+        return F.conv_transpose2d(x, weight, bias, module.stride, padding)
+    fn = F.conv3d if x.dim() == 5 else F.conv2d
+    return fn(x, weight, bias, module.stride, padding)
+
+
 class MiddleLayers(nn.Module):
     def __init__(self, cin: int = 128):
         super().__init__()
@@ -109,18 +131,17 @@ class MiddleLayers(nn.Module):
         return _bev(x)
 
     def from_table(self, feat: torch.Tensor, coords: torch.Tensor,
-                   counts: torch.Tensor, occ: torch.Tensor,
-                   mesh=None) -> torch.Tensor:
+                   counts: torch.Tensor, occ: torch.Tensor, mesh=None,
+                   window=None) -> torch.Tensor:
         """sparse1: voxel table feat (B, K, C) in the compute type, int32
         coords (B, K, 3) and counts (B, K), and their occupancy map
         (B, D, H, W) of the whole grid -> BEV (B, C' * D', H, W); block 1
         from the table, blocks 2-3 and the fold as `forward`. Under a
         model axis of `mesh`, block 1 computes this process's W slab
-        (whose taps read the map's columns on either side of it)."""
+        `window` = (x0, wloc) (whose taps read the map's columns on
+        either side of it); for an empty slab occ may be the map's
+        (B, D, H, 0) columns that it reads: none."""
         first, *rest = self.children()
-        window = None
-        if mesh is not None:
-            window = slab(occ.shape[-1], mesh.num_model, mesh.model_index)
         x = first.from_table(feat, coords, counts, occ, window)
         for block in rest:
             x = block(x, mesh)
@@ -129,6 +150,7 @@ class MiddleLayers(nn.Module):
 
 def _bev(x: torch.Tensor) -> torch.Tensor:
     """(B, C, D', H, W) -> (B, C * D', H, W)"""
-    b, _, _, h, w = x.shape
+    b, c, d, h, w = x.shape
     # c-major fold; NHWC memory for the channels-last RPN
-    return x.permute(0, 3, 4, 1, 2).reshape(b, h, w, -1).permute(0, 3, 1, 2)
+    return x.permute(0, 3, 4, 1, 2).reshape(b, h, w, c * d).permute(
+        0, 3, 1, 2)

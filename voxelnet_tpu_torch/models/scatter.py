@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from voxelnet_tpu_torch.kernels.dense_build import dense_build_autograd
+from voxelnet_tpu_torch.parallel.spatial import no_columns
 
 
 def scatter_to_dense_streamed(voxel_features: torch.Tensor,
@@ -23,9 +24,13 @@ def scatter_to_dense_streamed(voxel_features: torch.Tensor,
     trailing, so each frame's rows in the window are first moved to the
     front by a stable partition (their order kept, a row gather that
     autograd carries back) and given the slab's ids
-    (z*H + y)*wloc + x - x0."""
+    (z*H + y)*wloc + x - x0. An empty window (wloc 0) launches nothing
+    (`no_columns`)."""
     D, H, W = grid_dzyx
     x0, wloc = (0, W) if w_window is None else w_window
+    b, _, c = voxel_features.shape
+    if wloc == 0:
+        return no_columns((b, D, H, 0, c), voxel_features)
     live = counts > 0
     if w_window is not None:
         x = coords[..., 2]
@@ -40,5 +45,4 @@ def scatter_to_dense_streamed(voxel_features: torch.Tensor,
     linear = (coords[..., 0] * H + coords[..., 1]) * wloc + coords[..., 2] - x0
     ids = torch.where(live, linear, n).to(torch.int32)
     dense = dense_build_autograd(voxel_features, ids, n)
-    b, _, c = voxel_features.shape
     return dense.view(b, D, H, wloc, c)

@@ -16,7 +16,9 @@ from __future__ import annotations
 
 import torch
 
-from voxelnet_tpu_torch.kernels.sparse_conv import sparse_conv_autograd
+from voxelnet_tpu_torch.kernels.sparse_conv import (depth_out,
+                                                    sparse_conv_autograd)
+from voxelnet_tpu_torch.parallel.spatial import no_columns
 
 
 def weight_matrix(weight: torch.Tensor) -> torch.Tensor:
@@ -41,8 +43,10 @@ def sparse_conv3x3(feat: torch.Tensor, coords: torch.Tensor,
     kernels/sparse_conv.py::occupancy_map (B, D, H, W), which carries the
     grid; weight the Conv3d's (Cout, C, 3, 3, 3), bias (Cout,).
     w_window=(x0, wloc) computes only output columns [x0, x0 + wloc) (the
-    spatial-sharding unit). relu=True applies a ReLU to the output in the
-    sum's store (the block's ReLU where no BN sits between).
+    spatial-sharding unit); an empty window (wloc 0, where occ may have
+    no columns) runs nothing and returns `no_columns`. relu=True applies
+    a ReLU to the output in the sum's store (the block's ReLU where no BN
+    sits between).
 
     The product is rounded to feat's type and then widened, as JAX computes
     `vals` in feat.dtype (`sparse_conv.py:87`); the sum and the bias run in
@@ -50,6 +54,10 @@ def sparse_conv3x3(feat: torch.Tensor, coords: torch.Tensor,
     the port's f64 check mode keeps its BN statistics in f64).
     Returns (B, Do, H, wloc, Cout) in feat's type."""
     B, K, _ = feat.shape
+    if w_window is not None and w_window[1] == 0:
+        D, H = occ.shape[1:3]
+        return no_columns((B, depth_out(D, stride_d, pad_d), H, 0,
+                           weight.shape[0]), feat, weight, bias)
     feat = torch.where((counts > 0)[..., None], feat, 0)
     vals = feat @ weight_matrix(weight.to(feat.dtype))
     acc = torch.promote_types(feat.dtype, torch.float32)

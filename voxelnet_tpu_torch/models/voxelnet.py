@@ -13,10 +13,11 @@ the module is in: the train and eval steps (training/train_step.py) run it.
 Under `system.num_model_shards = M > 1` (the JAX model's `spatial_shard`
 and `num_model`) the M processes of a model group (parallel/mesh.py) hold
 the same rows: each runs the VFE and the voxel table whole, then only its
-W slab of the dense grid (or of sparse1's block 1), the middle and the
-RPN, with halo exchanges between neighbours, and gathers the heads' maps
-whole (parallel/spatial.py); decode, NMS, targets and the loss run
-replicated.
+W slab (`w_window`: uneven where the RPN's units do not divide evenly,
+empty for the last ranks where there are fewer units than ranks) of the
+dense grid (or of sparse1's block 1), the middle and the RPN, with halo
+exchanges between neighbours, and gathers the heads' maps whole
+(parallel/spatial.py); decode, NMS, targets and the loss run replicated.
 """
 
 from __future__ import annotations
@@ -68,6 +69,7 @@ class VoxelNet(nn.Module):
     def __init__(self, config: VoxelNetConfig):
         super().__init__()
         self.mesh = model_mesh(config)
+        self.window = w_window(config, self.mesh)
         obj = config.object
         self.grid_dzyx = tuple(obj.grid_size)
         self.compute_dtype = getattr(torch, config.train.compute_dtype)
@@ -104,29 +106,49 @@ class VoxelNet(nn.Module):
         voxelwise = self.feature_net.table(
             features, counts, self.compute_dtype,
             None if mesh is None else mesh.data_group)
+        columns = rpn_columns(self.grid_dzyx, self.window)
         if seams:
             bev = _recomputed(self._middle, voxelwise, coords, counts)
-            return _recomputed(self.rpn, bev, mesh)
-        return self.rpn(self._middle(voxelwise, coords, counts), mesh)
+            return _recomputed(self.rpn, bev, mesh, *columns)
+        return self.rpn(self._middle(voxelwise, coords, counts), mesh,
+                        *columns)
 
     def _middle(self, voxelwise, coords, counts):
-        mesh = self.mesh
+        mesh, window = self.mesh, self.window
         if self.middle_path == "sparse1":
-            occ = occupancy_map(coords, counts, self.grid_dzyx)
+            occ = window_occupancy(coords, counts, self.grid_dzyx, window)
             return self.middle.from_table(voxelwise, coords, counts, occ,
-                                          mesh)
+                                          mesh, window)
         dense = scatter_to_dense_streamed(voxelwise, coords, counts,
-                                          self.grid_dzyx,
-                                          w_window(self.grid_dzyx, mesh))
+                                          self.grid_dzyx, window)
         return self.middle(dense, mesh)
 
 
-def w_window(grid_dzyx, mesh: ProcessMesh | None):
+def w_window(config: VoxelNetConfig, mesh: ProcessMesh | None):
     """(x0, wloc) of this process's W slab of the grid under a model axis
-    of `mesh`, None without one."""
+    of `mesh`, in units of the RPN's rpn.block1_stride x 4 columns
+    (parallel/spatial.py::slab; wloc 0 for a rank past the units), None
+    without one."""
     if mesh is None:
         return None
-    return slab(grid_dzyx[2], mesh.num_model, mesh.model_index)
+    return slab(config.object.grid_size[2], mesh.num_model,
+                mesh.model_index, 4 * config.rpn.block1_stride)
+
+
+def rpn_columns(grid_dzyx, window) -> tuple:
+    """RPN.forward's (x0, width) of the BEV map under a W window, () for
+    the whole map."""
+    return () if window is None else (window[0], grid_dzyx[2])
+
+
+def window_occupancy(coords, counts, grid_dzyx, window):
+    """sparse1's occupancy map of the whole grid (B, D, H, W); for an
+    empty W window (x0, 0) the map's columns that it reads, (B, D, H, 0),
+    with no kernel launched."""
+    if window is not None and window[1] == 0:
+        return counts.new_zeros((counts.shape[0],) + tuple(grid_dzyx[:2])
+                                + (0,))
+    return occupancy_map(coords, counts, grid_dzyx)
 
 
 def _recomputed(fn, *args):
@@ -223,6 +245,8 @@ def make_inference_fn(config: VoxelNetConfig,
     max_voxels = config.data.max_voxels
     table_vfe = config.compat.bn_over_padding
     mesh = model_mesh(config)
+    window = w_window(config, mesh)
+    columns = rpn_columns(obj.grid_size, window)
     cache: dict = {}
 
     def prepared(model: VoxelNet) -> VoxelNet:
@@ -263,18 +287,17 @@ def make_inference_fn(config: VoxelNetConfig,
             coords, counts = prep.coords, prep.counts
         mark(marks, "vfe", device)
         if plan.middle == "sparse1":
-            occ = occupancy_map(coords, counts, obj.grid_size)
+            occ = window_occupancy(coords, counts, obj.grid_size, window)
             mark(marks, "dense", device)
             bev = net.middle.from_table(voxelwise.to(dtype), coords, counts,
-                                        occ, mesh)
+                                        occ, mesh, window)
         else:
             dense = scatter_to_dense_streamed(voxelwise, coords, counts,
-                                              obj.grid_size,
-                                              w_window(obj.grid_size, mesh))
+                                              obj.grid_size, window)
             mark(marks, "dense", device)
             bev = net.middle(dense.to(dtype), mesh)
         mark(marks, "middle", device)
-        cls_logits, reg = net.rpn(bev, mesh)
+        cls_logits, reg = net.rpn(bev, mesh, *columns)
         mark(marks, "rpn", device)
         b = cls_logits.shape[0]
         probs = torch.sigmoid(cls_logits).reshape(b, -1)

@@ -3,14 +3,20 @@ the port's counterpart of what XLA inserts for the sharding constraints of
 `voxelnet_tpu/models/voxelnet.py:138-166`.
 
 Each of the M processes of a model group holds W slab m, the columns
-[x0, x0 + W/M) with x0 = m * W/M (`slab`), of the dense grid, the middle
-stack and the RPN. A conv that reads columns past its slab first takes
-them from its neighbours (`halo_exchange`); the heads' maps are gathered
-whole on every member (`gather_w`), after which decode, NMS, targets and
-the loss run replicated. Both are one SUM all-reduce over the model group
-of a zeroed buffer into which each member writes its part: one code path
-on gloo (which has only all-reduce and broadcast for CUDA tensors) and
-NCCL. The W axis is the last index of every tensor here.
+[x0, x0 + wloc) of `slab`, of the dense grid, the middle stack and the
+RPN. The grid's W is cut into units of `align` columns (the RPN's, so no
+stride-2 stage splits a slab) and the units are dealt out as evenly as
+they go, the first ranks taking one more; where there are fewer units
+than ranks the last ranks hold none, past the global right edge. A conv
+that reads columns past its slab first takes them from its neighbours
+(`halo_exchange`); the heads' maps are gathered whole on every member
+(`gather_w`), after which decode, NMS, targets and the loss run
+replicated. Both are one SUM all-reduce over the model group of a zeroed
+buffer into which each member writes its part: one code path on gloo
+(which has only all-reduce and broadcast for CUDA tensors) and NCCL. A
+member with an empty slab joins every collective and runs no kernel: its
+layers return `no_columns`. The W axis is the last index of every tensor
+here.
 """
 
 from __future__ import annotations
@@ -21,16 +27,33 @@ from voxelnet_tpu_torch.parallel import distributed
 from voxelnet_tpu_torch.parallel.distributed import Group
 
 
-def slab(width: int, num: int, index: int) -> tuple[int, int]:
-    """(x0, wloc): the columns [x0, x0 + wloc) of slab `index` of `num`
-    equal slabs of `width` columns. Refuses a width that does not divide,
-    as `voxelnet_tpu/models/sparse_conv.py:255-258` does."""
-    if width % num:
+def slab(width: int, num: int, index: int,
+         align: int = 1) -> tuple[int, int]:
+    """(x0, wloc): the columns [x0, x0 + wloc) of slab `index` of `num`,
+    cut from `width` columns in units of `align`: rank m takes
+    base + (m < extra) units, base, extra = divmod(width // align, num),
+    so a slab starts on a multiple of `align` and the last ranks hold
+    none where there are fewer units than ranks. Equal slabs where `num`
+    divides the units. Refuses a width that is not a whole number of
+    units."""
+    if width % align:
         raise ValueError(
-            f"W={width} must divide by num_model_shards={num} for the "
+            f"W={width} must be a multiple of {align} columns for the "
             "spatial sharding")
-    wloc = width // num
-    return index * wloc, wloc
+    base, extra = divmod(width // align, num)
+    x0 = (index * base + min(index, extra)) * align
+    return x0, (base + (index < extra)) * align
+
+
+def no_columns(shape, *tied: torch.Tensor) -> torch.Tensor:
+    """A tensor of `shape`, which has a 0 in it (no columns), in tied[0]'s
+    type and device: a layer's output on an empty slab, made without a
+    kernel. It depends in autograd on each tensor of `tied` (each then
+    gets a zero gradient), so the empty slab's backward still reaches
+    every collective before it and every parameter, as each member's
+    does."""
+    tie = sum(t.narrow(-1, 0, 0).sum() for t in tied)
+    return tied[0].new_zeros(shape) + tie.to(tied[0].dtype)
 
 
 def _empty(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -51,7 +74,9 @@ class _HaloExchange(torch.autograd.Function):
     `left` columns, x, the right neighbour's first `right` columns; zeros
     past the global edges. Member m writes its first `right` and last
     `left` columns into slot m of a zeroed (M, ..., right + left) buffer,
-    one SUM all-reduce, then it reads slots m - 1 and m + 1. The backward
+    one SUM all-reduce, then it reads slots m - 1 and m + 1. A member of
+    no columns writes nothing: it lies past the global right edge, so the
+    zeros its left neighbour reads are that edge's padding. The backward
     is the adjoint: each halo's gradient is written into its owner's slot,
     one all-reduce, and added to the owner's edge columns."""
 
@@ -60,8 +85,9 @@ class _HaloExchange(torch.autograd.Function):
         m, num, w = group.index(), group.size, x.shape[-1]
         ctx.geometry = (left, right, group)
         buf = x.new_zeros((num,) + x.shape[:-1] + (right + left,))
-        buf[m, ..., :right] = x[..., :right]
-        buf[m, ..., right:] = x[..., w - left:]
+        if w:
+            buf[m, ..., :right] = x[..., :right]
+            buf[m, ..., right:] = x[..., w - left:]
         distributed.all_reduce_in_place(buf, group)
         out = _empty(x, left + w + right)
         out[..., left:left + w] = x
@@ -81,8 +107,9 @@ class _HaloExchange(torch.autograd.Function):
             buf[m + 1, ..., :right] = grad[..., left + w:]
         distributed.all_reduce_in_place(buf, group)
         dx = grad[..., left:left + w].clone()
-        dx[..., :right] += buf[m, ..., :right]
-        dx[..., w - left:] += buf[m, ..., right:]
+        if w:
+            dx[..., :right] += buf[m, ..., :right]
+            dx[..., w - left:] += buf[m, ..., right:]
         return dx, None, None, None
 
 
@@ -92,36 +119,46 @@ def halo_exchange(x: torch.Tensor, left: int, right: int,
     neighbours' edge columns (zeros past the global edges), differentiable.
     A conv of kernel k, stride s and W padding p then runs with W padding
     0 on it where left = p and the slab's last output reads `right`
-    columns past it."""
-    if not 0 <= max(left, right) <= x.shape[-1]:
+    columns past it. The members' widths may differ; each must hold at
+    least as many columns as either halo, or none (the empty slabs of
+    `slab`, which lie past the global right edge)."""
+    w = x.shape[-1]
+    if min(left, right) < 0 or 0 < w < max(left, right):
         raise ValueError(f"halo_exchange: halos ({left}, {right}) need a "
-                         f"slab of at least as many columns, not "
-                         f"{x.shape[-1]}")
+                         f"slab of at least as many columns, or none, not "
+                         f"{w}")
     return _HaloExchange.apply(x, left, right, group)
 
 
 class _GatherW(torch.autograd.Function):
-    """x (..., w) -> (..., M * w): each member writes its slab into a
-    zeroed full-width tensor, one SUM all-reduce. Every member then
-    computes the same loss from the whole map, so the gradient of x is
-    this member's slice of the full gradient, without a collective."""
+    """x (..., wloc), the columns [x0, x0 + wloc), -> (..., width): each
+    member writes its slab into a zeroed full-width tensor, one SUM
+    all-reduce. Every member then computes the same loss from the whole
+    map, so the gradient of x is this member's slice of the full
+    gradient, without a collective."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        m, w = group.index(), x.shape[-1]
-        ctx.window = (m * w, w)
-        full = x.new_zeros(x.shape[:-1] + (group.size * w,))
-        full[..., m * w:(m + 1) * w] = x
+    def forward(ctx, x, x0, width, group):
+        w = x.shape[-1]
+        ctx.window = (x0, w)
+        full = x.new_zeros(x.shape[:-1] + (width,))
+        full[..., x0:x0 + w] = x
         distributed.all_reduce_in_place(full, group)
         return full
 
     @staticmethod
     def backward(ctx, grad):
         x0, w = ctx.window
-        return grad[..., x0:x0 + w].contiguous(), None
+        return grad[..., x0:x0 + w].contiguous(), None, None, None
 
 
-def gather_w(x: torch.Tensor, group: Group) -> torch.Tensor:
-    """The whole-W tensor from every member's slab x (..., W / M), on
-    every member of `group`; differentiable (see _GatherW)."""
-    return _GatherW.apply(x, group)
+def gather_w(x: torch.Tensor, x0: int, width: int,
+             group: Group) -> torch.Tensor:
+    """The whole tensor of `width` columns on every member of `group`,
+    from each member's slab x (..., wloc) of the columns [x0, x0 + wloc)
+    (the slabs tile the width; a slab may be empty); differentiable (see
+    _GatherW)."""
+    if not 0 <= x0 <= x0 + x.shape[-1] <= width:
+        raise ValueError(f"gather_w: columns [{x0}, {x0 + x.shape[-1]}) "
+                         f"lie outside a width of {width}")
+    return _GatherW.apply(x, x0, width, group)
