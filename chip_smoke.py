@@ -134,7 +134,18 @@ Phases, each fatal on failure:
      (a) over NCCL (and (b) on four), else it says it did not run; (f)
      uneven W slabs, as (a): Car conv3d on 1 x 3 (120/120/112 columns)
      and Pedestrian sparse1 on 1 x 4 (64/64/56/56), inference B=8, and
-     (c)'s tiny f32 step on 1 x 3 (24/24/16).
+     (c)'s tiny f32 step on 1 x 3 (24/24/16);
+ 12. the bench ladder: voxelnet_tpu_torch.bench.main in this process at
+     full Car width, B=8, 3 timed chains of its ITERS calls, for each
+     stage with conv3d (vfe, dense, middle, infer, train, targets), for
+     middle, infer and train with sparse1, train with --host-voxelize and
+     inference at B=1: each JSON line (printed) parses and has a positive
+     value, the launch counts read around each run show the stage's
+     kernels and no other (vfe: vfe_fused; dense, middle, inference:
+     with dense_build; sparse1: occupancy_map and sparse_conv instead,
+     its train step with run_copy and the gradient; train: run_copy and
+     dense_build; --host-voxelize: dense_build alone; targets: none), and
+     the inference B=8 value lies within a factor of 2 of phase 4's.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing it when
 torch sees no CUDA device or any check fails.
@@ -180,6 +191,7 @@ from voxelnet_tpu_torch.training.train_step import (TRAIN_STAGES,
                                                     create_train_state,
                                                     make_train_step)
 from voxelnet_tpu_torch.tools import synthetic_smoke
+from voxelnet_tpu_torch.tools.card import card_line
 from voxelnet_tpu_torch.training.trainer import Trainer
 from voxelnet_tpu_torch.utils import image_io, kitti
 
@@ -301,14 +313,6 @@ def timed(fn, reps: int = 50) -> dict:
     """{"ms": cuda_ms(fn), "device_ms": device_ms(fn)} over the same
     number of back-to-back calls."""
     return {"ms": cuda_ms(fn, reps), "device_ms": device_ms(fn, reps)}
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def nbytes(*tensors) -> int:
@@ -636,8 +640,11 @@ def phase_small_reference(device, compat=None, overrides=None):
           f"error {err}")
 
 
-def phase_timing(model, frames, device, card, overrides=None):
+def phase_timing(model, frames, device, card, overrides=None) -> dict:
+    """Per-stage and end-to-end CUDA-event times of make_inference_fn at
+    B=1 and B=8 -> {batch: frames/s}, by the median end-to-end time."""
     config = get_config("Car", **(overrides or {}))
+    fps = {}
     infer = make_inference_fn(config, device)
     rng = np.random.default_rng(SEED)
     for batch in (1, 8):
@@ -661,6 +668,7 @@ def phase_timing(model, frames, device, card, overrides=None):
                 per_stage[stage].append(a.elapsed_time(b))
             per_stage["total"].append(marks[0][1].elapsed_time(marks[-1][1]))
         med = {s: statistics.median(v) for s, v in per_stage.items()}
+        fps[batch] = batch * 1e3 / med["total"]
         peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
         print(f"  B={batch}: end-to-end {med['total']} ms CUDA events, "
               f"{statistics.median(host)} ms host, "
@@ -668,6 +676,7 @@ def phase_timing(model, frames, device, card, overrides=None):
               f"[{card}]")
         print("    " + ", ".join(f"{s} {med[s]}" for s in STAGES) + " (ms)")
         print_profile(lambda: infer(model, points, num))
+    return fps
 
 
 def print_profile(call):
@@ -2382,6 +2391,77 @@ def phase_spatial(frames, device, seed, tmp, card) -> dict:
     return launches
 
 
+# ---- phase 12: the bench ladder, voxelnet_tpu_torch.bench in process
+
+# each run of the bench (Car, B=8 unless it says otherwise, BENCH_REPEATS
+# timed chains of bench.ITERS calls), and the kernels it must launch: every
+# other one of KERNELS must stay idle
+BENCH_RUNS = (
+    ("vfe", ["--stage", "vfe"], ("vfe_fused",)),
+    ("dense", ["--stage", "dense"], ("vfe_fused", "dense_build")),
+    ("middle", ["--stage", "middle"], ("vfe_fused", "dense_build")),
+    ("infer", ["--stage", "infer"], ("vfe_fused", "dense_build")),
+    ("train", ["--stage", "train"], ("run_copy", "dense_build")),
+    ("targets", ["--stage", "targets"], ()),
+    ("middle_sparse1", ["--stage", "middle", "--middle-backend", "sparse1"],
+     ("vfe_fused", "occupancy_map", "sparse_conv")),
+    ("infer_sparse1", ["--stage", "infer", "--middle-backend", "sparse1"],
+     ("vfe_fused", "occupancy_map", "sparse_conv")),
+    ("train_sparse1", ["--stage", "train", "--middle-backend", "sparse1"],
+     ("run_copy", "occupancy_map", "sparse_conv", "sparse_conv_grad")),
+    ("train_host_voxelize", ["--stage", "train", "--host-voxelize"],
+     ("dense_build",)),
+    ("infer_b1", ["--stage", "infer", "--batch", "1"],
+     ("vfe_fused", "dense_build")),
+)
+BENCH_REPEATS = 3
+# the bench's inference B=8 frames/s (wall clock over a chain, NMS's host
+# syncs included) against phase 4's (CUDA events around one call): within
+# this factor either way
+BENCH_INFER_FACTOR = 2.0
+
+
+def phase_bench(phase4_fps: float) -> dict:
+    """12. `voxelnet_tpu_torch.bench.main` in this process for each of
+    BENCH_RUNS: its one JSON line (printed here) parses and has a
+    positive value, the launch counts read around the run show its
+    kernels and no other, and the inference B=8 value lies within
+    BENCH_INFER_FACTOR of phase 4's -> {"bench_<run>": launches}."""
+    from voxelnet_tpu_torch import bench
+
+    print(f"[12] bench ladder: voxelnet_tpu_torch.bench, Car, "
+          f"--repeats {BENCH_REPEATS}, ITERS={bench.ITERS}")
+    by_run, values = {}, {}
+    for name, argv, ran in BENCH_RUNS:
+        out = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            bench.main(argv + ["--repeats", str(BENCH_REPEATS)])
+        took = time.perf_counter() - t0
+        launches = launch_counts()
+        lines = out.getvalue().splitlines()
+        check(len(lines) == 1,
+              f"bench {name}: {len(lines)} lines of output: {lines[-3:]}")
+        line = json.loads(lines[0])
+        print(f"  {name}: {lines[0]}")
+        print(f"    {took} s; launches {launches}")
+        check(line["value"] > 0 and line["repeats"] == BENCH_REPEATS,
+              f"bench {name}: {line}")
+        check_launched(f"bench {name}", launches, ran,
+                       [k for k in KERNELS if k not in ran])
+        by_run[f"bench_{name}"] = launches
+        values[name] = line["value"]
+        torch.cuda.empty_cache()
+    ratio = values["infer"] / phase4_fps
+    print(f"  bench inference B=8 {values['infer']} frames/s against phase "
+          f"4's {phase4_fps}: ratio {ratio}")
+    check(1 / BENCH_INFER_FACTOR <= ratio <= BENCH_INFER_FACTOR,
+          f"bench inference B=8 {values['infer']} frames/s is not within "
+          f"{BENCH_INFER_FACTOR}x of phase 4's {phase4_fps}")
+    return by_run
+
+
 def kernel_entry(name, times, errs, bounds, launches, by_path) -> dict:
     """One kernel's object of the {"kernels": [...]} line: event and
     profiler device times of the kernel, its plain version and its one
@@ -2458,7 +2538,7 @@ def main(argv=None):
     times, errs, bounds = phase_kernels(config, model, frames, device, card)
     infer_launches, conv3d_dets = phase_main_path(model, frames, device)
     phase_small_reference(device)
-    phase_timing(model, frames, device, card)
+    infer_fps = phase_timing(model, frames, device, card)
     del model
     train_launches = phase_train(frames, device, card, args.seed)
     phase_train_small_reference(frames, device, args.seed)
@@ -2496,6 +2576,9 @@ def main(argv=None):
         t11 = time.perf_counter()
         spatial = phase_spatial(frames, device, args.seed, tmp, card)
         print(f"[11] phase 11 took {time.perf_counter() - t11} s")
+    t12 = time.perf_counter()
+    bench_launches = phase_bench(infer_fps[8])
+    print(f"[12] phase 12 took {time.perf_counter() - t12} s")
 
     # each kernel's count on the path of the slice that brought it: the
     # fused VFE runs only for inference, dense_build and run_copy on the
@@ -2521,7 +2604,8 @@ def main(argv=None):
                "sparse1_inference": sparse_infer,
                "sparse1_train": sparse_train,
                "sparse1_trainer": sparse_trainer,
-               "sparse1_data_parallel_rank0": sparse_dp, **spatial}
+               "sparse1_data_parallel_rank0": sparse_dp, **spatial,
+               **bench_launches}
     entries = [kernel_entry(name, times, errs, bounds, launches, by_path)
                for name in KERNELS]
     entries[KERNELS.index("vfe_fused")].update(vfe_info)

@@ -137,7 +137,8 @@ def test_stage_points_matches_jax_pipeline():
 def test_port_imports_no_jax():
     """The package, its CLIs, its train step, trainer, checkpoints,
     evaluator, dataset, data parallelism, viz, data tools, reference API
-    and Orbax converter, and the chip smoke script load without JAX, flax, optax or orbax and without any module of the
+    and Orbax converter, the benchmark and the chip smoke script load
+    without JAX, flax, optax or orbax and without any module of the
     JAX package, under its name or loaded from a file under voxelnet_tpu/,
     with yaml and cv2 unimportable (the card's machine has neither).
     conftest.py has imported JAX here, so check in a subprocess."""
@@ -170,6 +171,8 @@ def test_port_imports_no_jax():
             "import voxelnet_tpu_torch.data.raw_to_kitti\n"
             "import voxelnet_tpu_torch.data.preprocess\n"
             "import voxelnet_tpu_torch.data.split\n"
+            "import voxelnet_tpu_torch.bench\n"
+            "import voxelnet_tpu_torch.tools.card\n"
             "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
             "from voxelnet_tpu_torch.config import get_config\n"
             "get_config('Car').dump_yaml()\n"
