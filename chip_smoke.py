@@ -1,6 +1,6 @@
 """Drive the PyTorch port's Car inference path, train step, trainer, data
-parallelism, learning run, viz, data tools, sparse1 and spatial W-sharding
-on one NVIDIA GPU.
+parallelism, learning run, viz, data tools, sparse1, spatial W-sharding,
+bench, profile tool and root entry points on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -24,7 +24,8 @@ Phases, each fatal on failure:
      score_thres 0.96 and 0.0; kernel launch counts read around that run;
      then the same path at a tiny grid in f32 on the card against the CPU;
      then per-stage and end-to-end CUDA-event times at B=1 and B=8, and a
-     torch.profiler kernel table of one call at each;
+     torch.profiler kernel table of one call at each, whose parsed op
+     total must equal the profiler's own device total within PARSER_REL;
   5. the train path: make_train_step at full Car width (bf16, B=2, 64 GT
      slots) through several steps on one batch of vendored frames with
      seeded synthetic Car boxes; every metric finite and the loss falling;
@@ -145,7 +146,21 @@ Phases, each fatal on failure:
      with dense_build; sparse1: occupancy_map and sparse_conv instead,
      its train step with run_copy and the gradient; train: run_copy and
      dense_build; --host-voxelize: dense_build alone; targets: none), and
-     the inference B=8 value lies within a factor of 2 of phase 4's.
+     the inference B=8 value lies within a factor of 2 of phase 4's;
+ 13. the port's root tools: (a) voxelnet_tpu_torch.tools.profile_step.main
+     in this process, Car B=8, 3 traced iterations, for inference (conv3d
+     and sparse1) and the train step: each table lists the path's port
+     kernels at the launches a call of phase 12's gates (vfe_fused and
+     dense_build; vfe_fused, occupancy_map and sparse_conv; run_copy and
+     dense_build), named by their csrc/ source, and no other, the launch
+     counts agree, the busy time is at most the op total and the host
+     wall and lies within PROFILE_BUSY_REL of print_profile's busy time
+     for the same graph in phase 4, 10 (b) or 5; the top 10 rows
+     printed; (b) graft_entry.entry() on the card: its cls and reg maps
+     against the same forward on the CPU within MAP_GATES' bf16 shares,
+     vfe_fused and dense_build launched; (c) graft_entry.dryrun_multichip(4)
+     and dryrun_multihost(2) with every rank on cuda:0 over gloo, each
+     rank's launches.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing it when
 torch sees no CUDA device or any check fails.
@@ -155,7 +170,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import glob
+import copy
 import io
 import json
 import math
@@ -176,12 +191,15 @@ from voxelnet_tpu_torch.cli import train as train_cli
 from voxelnet_tpu_torch.config import get_config
 from voxelnet_tpu_torch.data import augment as augment_lib
 from voxelnet_tpu_torch.data.sample import sample_frames
-from voxelnet_tpu_torch.kernels import (_build, dense_build, run_copy,
-                                        sparse_conv, vfe_fused)
+from voxelnet_tpu_torch.kernels import (KERNELS, REPLACES, SOURCES, _build,
+                                        dense_build, launch_counts,
+                                        reset_launches, run_copy,
+                                        source_path, sparse_conv, vfe_fused)
 from voxelnet_tpu_torch.models.init import randomize_bn_
 from voxelnet_tpu_torch.models.sparse_conv import weight_matrix
 from voxelnet_tpu_torch.models.voxelnet import (STAGES, build_model,
-                                                make_inference_fn, w_window)
+                                                make_inference_fn,
+                                                make_maps_fn, w_window)
 from voxelnet_tpu_torch.ops.voxelize import (VoxelGridSpec, prepare,
                                              resolve_host_voxelizer,
                                              voxelize_np, voxelize_table)
@@ -190,7 +208,7 @@ from voxelnet_tpu_torch.parallel.mesh import ProcessMesh
 from voxelnet_tpu_torch.training.train_step import (TRAIN_STAGES,
                                                     create_train_state,
                                                     make_train_step)
-from voxelnet_tpu_torch.tools import synthetic_smoke
+from voxelnet_tpu_torch.tools import profile_step, synthetic_smoke
 from voxelnet_tpu_torch.tools.card import card_line
 from voxelnet_tpu_torch.training.trainer import Trainer
 from voxelnet_tpu_torch.utils import image_io, kitti
@@ -199,26 +217,6 @@ SEED = 0
 TINY = {"object": {"x_max": 12.8, "y_min": -6.4, "y_max": 6.4},
         "data": {"max_points": 2048, "max_voxels": 256, "max_gt_boxes": 8},
         "train": {"compute_dtype": "float32"}, "rpn": {"score_thres": 0.0}}
-KERNELS = ("vfe_fused", "dense_build", "run_copy", "sparse_conv",
-           "sparse_conv_grad", "occupancy_map")
-# the CUDA sources under voxelnet_tpu_torch/csrc/, and the source of each
-# kernel not named after its own
-SOURCES = ("vfe_fused", "dense_build", "run_copy", "sparse_conv")
-SOURCE = {"sparse_conv_grad": "sparse_conv", "occupancy_map": "sparse_conv"}
-REPLACES = {
-    "vfe_fused": "voxelnet_tpu/kernels/vfe_fused.py:52",
-    "dense_build": "voxelnet_tpu/kernels/dense_build.py:62",
-    "run_copy": "voxelnet_tpu/kernels/voxelize_pallas.py:189 "
-                "(_planar_t_kernel), :79 (_planar_kernel), :48 (_kernel)",
-    # XLA code, no Pallas kernel: the 27 scatter-adds and their gradient
-    "sparse_conv": "voxelnet_tpu/models/sparse_conv.py:92-108 (the 27 "
-                   "scatter-adds)",
-    "sparse_conv_grad": "voxelnet_tpu/models/sparse_conv.py:92-108 (the "
-                        "gather of their autodiff)",
-    "occupancy_map": "voxelnet_tpu/models/sparse_conv.py:92-108 (none: the "
-                     "lookup the output-stationary sum needs; JAX scatters "
-                     "instead)",
-}
 SPARSE1 = {"data": {"middle_backend": "sparse1"}}
 # NVIDIA H100 SXM data sheet, dense rates: HBM3 bandwidth, and the peak
 # operation rate by the type of the operands (bf16 on the tensor cores, f32
@@ -293,20 +291,27 @@ def cuda_ms(fn, reps: int = 50, windows: int = 5, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 50) -> float:
+def device_ms(fn, reps: int = 50, attempts: int = 3) -> float:
     """The device's self time of every kernel that one fn() call launches,
     in ms: torch.profiler over `reps` back-to-back calls, divided by `reps`.
-    Host time between the kernels is not in it."""
+    Host time between the kernels is not in it. A profile that came back
+    with no device time (CUPTI dropped a short window's records once, on
+    an H100 80GB HBM3: occupancy_map at B=8) is taken again, up to
+    `attempts` profiles; raises when none recorded the device."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as p:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in p.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
-    return busy / 1e3 / reps
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in p.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        if busy > 0:
+            return busy / 1e3 / reps
+    raise CheckFailed(f"torch.profiler recorded no device time in "
+                      f"{attempts} profiles of {reps} calls")
 
 
 def timed(fn, reps: int = 50) -> dict:
@@ -557,21 +562,6 @@ def check_detections(det, config, batch):
     return counts.tolist()
 
 
-def reset_launches():
-    vfe_fused.launches = dense_build.launches = run_copy.launches = 0
-    sparse_conv.launches = sparse_conv.grad_launches = 0
-    sparse_conv.occupancy_launches = 0
-
-
-def launch_counts() -> dict:
-    return {"vfe_fused": vfe_fused.launches,
-            "dense_build": dense_build.launches,
-            "run_copy": run_copy.launches,
-            "sparse_conv": sparse_conv.launches,
-            "sparse_conv_grad": sparse_conv.grad_launches,
-            "occupancy_map": sparse_conv.occupancy_launches}
-
-
 def check_launched(what: str, launches: dict, ran=(), idle=()) -> None:
     """Each kernel of `ran` launched, none of `idle`."""
     check(all(launches[k] > 0 for k in ran)
@@ -640,11 +630,12 @@ def phase_small_reference(device, compat=None, overrides=None):
           f"error {err}")
 
 
-def phase_timing(model, frames, device, card, overrides=None) -> dict:
+def phase_timing(model, frames, device, card, overrides=None):
     """Per-stage and end-to-end CUDA-event times of make_inference_fn at
-    B=1 and B=8 -> {batch: frames/s}, by the median end-to-end time."""
+    B=1 and B=8 -> ({batch: frames/s}, by the median end-to-end time;
+    {batch: print_profile's device busy ms of one call})."""
     config = get_config("Car", **(overrides or {}))
-    fps = {}
+    fps, busy = {}, {}
     infer = make_inference_fn(config, device)
     rng = np.random.default_rng(SEED)
     for batch in (1, 8):
@@ -675,32 +666,49 @@ def phase_timing(model, frames, device, card, overrides=None) -> dict:
               f"{batch * 1e3 / med['total']} frames/s, peak {peak} GiB "
               f"[{card}]")
         print("    " + ", ".join(f"{s} {med[s]}" for s in STAGES) + " (ms)")
-        print_profile(lambda: infer(model, points, num))
-    return fps
+        busy[batch] = print_profile(lambda: infer(model, points, num))
+    return fps, busy
 
 
-def print_profile(call):
-    """Kernel time by name for one call(), and the device's busy share of
-    the call's CUDA-event span."""
-    from torch.profiler import ProfilerActivity, profile
+# print_profile: the trace parser's op total against the profiler's own
+# sum of the same profile's device times. Both read the same CUPTI
+# records, so they differ by the rounding of the sums alone: on an H100
+# 80GB HBM3 at 700 W six profiles (inference B=1 and 8, conv3d and
+# sparse1, the train steps) agreed to 1e-14; 1e-6 fails a parser that
+# drops or double-counts even one memset
+PARSER_REL = 1e-6
 
+
+def print_profile(call) -> float:
+    """Kernel time by name for one call() (the profile tool's parser over
+    its trace), and the device's busy share of the call's CUDA-event
+    span -> the busy ms. The parser's op total must equal, within
+    PARSER_REL, the profiler's own sum of the same profile's device
+    times (key_averages), which another code path aggregates."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as p:
+
+    def timed_call():
         start.record()
         call()
         end.record()
-        torch.cuda.synchronize()
-    kernels = [e for e in p.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _, path, prof = profile_step.trace_calls(timed_call, (), tmp, 1,
+                                                 torch.device("cuda", 0))
+        s = profile_step.parse_trace(path, 1)
+    own = sum(e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     span = start.elapsed_time(end)
-    print(f"    profile: kernels busy {busy} ms of {span} ms "
-          f"(idle share {1 - busy / span})")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
-        print(f"      {e.self_device_time_total / 1e3:9.4f} ms "
-              f"x{e.count:<4d} {e.key[:150]}")
+    print(f"    profile: kernels busy {s.busy_ms} ms (op total "
+          f"{s.total_ms}; the profiler's own device total {own}) of {span} "
+          f"ms (idle share {1 - s.busy_ms / span})")
+    for r in s.rows[:20]:
+        print(f"      {r.ms:9.4f} ms x{r.calls:<4g} {r.name[:150]}")
+    check(abs(s.total_ms - own) <= PARSER_REL * own,
+          f"the trace parser's device op total {s.total_ms} ms against the "
+          f"profiler's own {own} ms")
+    return s.busy_ms
 
 
 def synthetic_gt(rng: np.random.Generator, config, batch: int,
@@ -793,10 +801,11 @@ def phase_train_small_reference(frames, device, seed, overrides=None):
 
 
 def phase_train_timing(frames, device, card, seed, overrides=None,
-                       batches=(2, 8)) -> dict:
-    """Step times at each of `batches` -> {batch: step-alone frames/s}."""
+                       batches=(2, 8)):
+    """Step times at each of `batches` -> ({batch: step-alone frames/s},
+    {8: print_profile's device busy ms of one step})."""
     config = get_config("Car", **(overrides or {}))
-    fps = {}
+    fps, busy = {}, {}
     for batch_size in batches:
         batch = train_batch(config, frames, batch_size, seed)
         batch = {k: torch.as_tensor(v, device=device)
@@ -829,9 +838,9 @@ def phase_train_timing(frames, device, card, seed, overrides=None,
         print("    " + ", ".join(f"{s} {med[s]}" for s in TRAIN_STAGES)
               + " (ms)")
         if batch_size == 8:
-            print_profile(lambda: step(state, batch))
+            busy[8] = print_profile(lambda: step(state, batch))
         del state, batch
-    return fps
+    return fps, busy
 
 
 def write_kitti_split(root: str, split: str, n: int, frames, config,
@@ -939,27 +948,6 @@ def phase_trainer(frames, device, seed, tmp) -> dict:
     return launches
 
 
-def trace_idle_share(logdir: str) -> tuple[float, float, int]:
-    """(device busy ms, span ms, kernels) of the newest torch.profiler
-    Chrome trace in `logdir`: the union of the device's kernel, memcpy and
-    memset intervals, and the span from its first start to its last end."""
-    path = max(glob.glob(os.path.join(logdir, "*.pt.trace.json")),
-               key=os.path.getmtime)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-                   and "dur" in e)
-    check(bool(spans), f"no device events in {path}")
-    busy, end = 0.0, -math.inf
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return busy / 1e3, (spans[-1][1] - spans[0][0]) / 1e3, sum(
-        1 for e in events if e.get("cat") == "kernel")
-
-
 def phase_trainer_timing(frames, device, seed, tmp, card, step_fps):
     """One epoch at B=8 over TIMING_FILES frames through a Trainer, then a
     second one traced by its --profile-steps window."""
@@ -979,8 +967,9 @@ def phase_trainer_timing(frames, device, seed, tmp, card, step_fps):
                      val_interval=1000,
                      profile_steps=(steps + 2, steps + 6))
         t = tr.timings
-        busy, span, kernels = trace_idle_share(
-            os.path.join(tr.exp_dir, "logs"))
+        trace = profile_step.parse_trace(os.path.join(tr.exp_dir, "logs"),
+                                         1)
+        busy, span, kernels = trace.busy_ms, trace.span_ms, trace.kernels
     check(t["epoch_steps"] == [steps, steps], f"steps {t['epoch_steps']}")
     fps = 8 * steps / t["epoch_s"][0]
     gaps = t["host_gap_s"][:steps - 1]
@@ -2039,9 +2028,10 @@ def match_detections(got, want) -> dict:
 
 
 def phase_sparse_inference(model, frames, device, card, conv3d_dets,
-                           tmp) -> dict:
+                           tmp) -> tuple[dict, dict, dict]:
     """(b) Car inference with sparse1 through make_inference_fn (phase 4's
-    calls) and cli.predict -> its launches."""
+    calls) and cli.predict -> (its launches, {batch: frames/s}, {batch:
+    print_profile's busy ms})."""
     print("[10] sparse1 (b): Car inference, bf16, 3 vendored frames, "
           "predict() and cli.predict --cfg")
     reset_launches()
@@ -2073,8 +2063,7 @@ def phase_sparse_inference(model, frames, device, card, conv3d_dets,
           f"sparse1 detections differ from conv3d's: {m}")
     phase_small_reference(device, overrides=SPARSE1)
     print("  sparse1 inference times:")
-    phase_timing(model, frames, device, card, SPARSE1)
-    return launches
+    return (launches, *phase_timing(model, frames, device, card, SPARSE1))
 
 
 def phase_sparse_train(frames, device, card, seed, tmp):
@@ -2462,6 +2451,138 @@ def phase_bench(phase4_fps: float) -> dict:
     return by_run
 
 
+# ---- phase 13: the profile tool and the root entry points
+
+# each traced run of (a): the profile tool's flags (Car, B=8), the phase
+# earlier in this call that profiled the same graph (print_profile), and the
+# port kernels the run's table must list with their launches per iteration
+# (those of phase 12's gates); every other kernel of KERNELS must be absent
+# from the trace and stay idle
+PROFILE_RUNS = (
+    ("infer", ["--stage", "infer"], "phase 4",
+     {"vfe_fused": 1, "dense_build": 1}),
+    ("infer_sparse1", ["--stage", "infer", "--middle-backend", "sparse1"],
+     "phase 10 (b)", {"vfe_fused": 1, "occupancy_map": 1, "sparse_conv": 1}),
+    ("train", ["--stage", "train"], "phase 5",
+     {"run_copy": 1, "dense_build": 1}),
+)
+PROFILE_ITERS = 3
+# the tool's device busy time a call against print_profile's for the same
+# graph earlier in the call: within this share. On an H100 80GB HBM3 at
+# 700 W the pairs read 20.98 / 21.07, 20.95 / 21.08, 20.98 / 20.97 ms
+# (inference), 13.09 / 13.13, 13.12 / 13.12 ms (sparse1) and 199.66 /
+# 197.37 ms (train step), gaps up to 1.2%, and a later call -0.56%,
+# +0.85%, -0.21%; print_profile's train step alone read 195.97 to 199.18
+# ms over three calls (1.6%). 4% is twice the larger spread, well under
+# the share of the step's largest ops, so a tool that traced other work,
+# or divided by the wrong count, fails
+PROFILE_BUSY_REL = 0.04
+def phase_profile(earlier: dict, tmp: str) -> dict:
+    """(a) `voxelnet_tpu_torch.tools.profile_step.main` in this process
+    for each of PROFILE_RUNS, held to `earlier`: {phase: (print_profile's
+    busy ms, CUDA-event ms) of the same graph} -> {"profile_<run>":
+    launches}."""
+    print(f"[13] (a) the profile tool: Car B=8, {PROFILE_ITERS} iterations "
+          f"under torch.profiler a graph")
+    by_run = {}
+    for name, argv, against, want in PROFILE_RUNS:
+        reset_launches()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            (section,) = profile_step.main(argv + [
+                "--out", tmp, "--out-md", f"{name}.md", "--iters",
+                str(PROFILE_ITERS)])
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        s, (busy, events) = section.summary, earlier[against]
+        print(f"  {name}: device op total {s.total_ms} ms, busy {s.busy_ms} "
+              f"ms, host wall {section.wall_ms} ms a call under the "
+              f"profiler; {against}'s busy {busy} ms (gap "
+              f"{s.busy_ms / busy - 1}), its CUDA events {events} ms (idle "
+              f"share {1 - s.busy_ms / events}); launches {launches}")
+        for r in s.rows[:10]:
+            print(f"      {r.ms:9.4f} ms x{r.calls:<4g} "
+                  f"{profile_step.short_name(r.name)} <- {r.launched_by}")
+        for kernel in KERNELS:
+            row, n = s.row(kernel), want.get(kernel, 0)
+            calls = 0 if row is None else row.calls
+            check(calls == n, f"profile {name}: {kernel} at {calls} "
+                  f"launches a call in the trace, expected {n}")
+            # the tool's warm-up call and the traced ones
+            check(launches[kernel] == (PROFILE_ITERS + 1) * n,
+                  f"profile {name}: {kernel} counted {launches[kernel]} "
+                  f"launches, expected {n} a call")
+            if row is not None:
+                check(row.launched_by == source_path(kernel),
+                      f"profile {name}: {kernel} launched by "
+                      f"{row.launched_by}")
+        # the union and the sum of the same durations, summed in
+        # another order: equal within rounding where nothing overlaps
+        check(s.busy_ms <= s.total_ms * (1 + 1e-9)
+              and s.busy_ms <= section.wall_ms,
+              f"profile {name}: busy {s.busy_ms} ms above the op total "
+              f"{s.total_ms} or the wall {section.wall_ms}")
+        check(abs(s.busy_ms - busy) <= PROFILE_BUSY_REL * busy,
+              f"profile {name}: device busy {s.busy_ms} ms not within "
+              f"{PROFILE_BUSY_REL} of {against}'s {busy} ms")
+        by_run[f"profile_{name}"] = launches
+        torch.cuda.empty_cache()
+    return by_run
+
+
+def phase_graft_entry(device) -> dict:
+    """(b) graft_entry.entry() on the card: its maps against the same fn
+    on the CPU (plain versions) within MAP_GATES' bf16 shares, its
+    launches; (c) dryrun_multichip(4) and dryrun_multihost(2), every rank
+    on cuda:0 over gloo -> {path: launches}."""
+    from voxelnet_tpu_torch import graft_entry
+
+    print("[13] (b) graft_entry.entry(): Car forward, 16384 points, 6144 "
+          "voxel slots, bf16")
+    fn, (model, points, num) = graft_entry.entry()
+    fn(model, points, num)
+    torch.cuda.synchronize()
+    reset_launches()
+    cls, reg = fn(model, points, num)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    cpu_fn = make_maps_fn(graft_entry.entry_config(), "cpu")
+    want = cpu_fn(copy.deepcopy(model).cpu(), points.cpu(), num.cpu())
+    check(tuple(cls.shape) == (1, 200, 176, 2)
+          and tuple(reg.shape) == (1, 200, 176, 14),
+          f"entry maps {cls.shape}, {reg.shape}")
+    gaps = {name: compare_maps(f"entry {name} (card vs CPU)", got, w, "bf16")
+            for name, got, w in (("cls", cls, want[0]), ("reg", reg, want[1]))}
+    print(f"  card vs CPU, shares of the spread: {gaps}; launches {launches}")
+    check_launched("entry", launches, ("vfe_fused", "dense_build"),
+                   ("run_copy", "sparse_conv", "sparse_conv_grad",
+                    "occupancy_map"))
+    del model
+    by_path = {"graft_entry": launches}
+
+    print("[13] (c) dryrun_multichip(4) and dryrun_multihost(2), ranks on "
+          "cuda:0 over gloo")
+    t0 = time.perf_counter()
+    chip = graft_entry.dryrun_multichip(4)
+    t1 = time.perf_counter()
+    host = graft_entry.dryrun_multihost(2)
+    print(f"  {t1 - t0} s and {time.perf_counter() - t1} s")
+    for r, rank in enumerate(chip["ranks"]):
+        check_launched(f"dryrun_multichip rank {r} step",
+                       rank["step_launches"], ("run_copy", "dense_build"))
+        check_launched(f"dryrun_multichip rank {r} inference",
+                       rank["infer_launches"], ("vfe_fused", "dense_build"))
+        check_launched(f"dryrun_multichip rank {r} sparse1",
+                       rank["sparse1_launches"],
+                       ("occupancy_map", "sparse_conv"), ("dense_build",))
+    for r, rank in enumerate(host["ranks"]):
+        check_launched(f"dryrun_multihost rank {r}", rank["step_launches"],
+                       ("run_copy", "dense_build"))
+    by_path.update(dryrun_multichip_rank0=chip["ranks"][0]["step_launches"],
+                   dryrun_multihost_rank0=host["ranks"][0]["step_launches"])
+    return by_path
+
+
 def kernel_entry(name, times, errs, bounds, launches, by_path) -> dict:
     """One kernel's object of the {"kernels": [...]} line: event and
     profiler device times of the kernel, its plain version and its one
@@ -2481,7 +2602,7 @@ def kernel_entry(name, times, errs, bounds, launches, by_path) -> dict:
 
     lib = times[name][2]
     entry = {"name": name, "route": "cuda",
-             "source": f"voxelnet_tpu_torch/csrc/{SOURCE.get(name, name)}.cu",
+             "source": source_path(name),
              "replaces": REPLACES[name], "design_pr": DESIGN_PR[name],
              "launches": launches[name],
              "launches_by_path": {path: counts[name]
@@ -2538,11 +2659,11 @@ def main(argv=None):
     times, errs, bounds = phase_kernels(config, model, frames, device, card)
     infer_launches, conv3d_dets = phase_main_path(model, frames, device)
     phase_small_reference(device)
-    infer_fps = phase_timing(model, frames, device, card)
+    infer_fps, infer_busy = phase_timing(model, frames, device, card)
     del model
     train_launches = phase_train(frames, device, card, args.seed)
     phase_train_small_reference(frames, device, args.seed)
-    step_fps = phase_train_timing(frames, device, card, args.seed)
+    step_fps, step_busy = phase_train_timing(frames, device, card, args.seed)
     with tempfile.TemporaryDirectory() as tmp:
         trainer_launches = phase_trainer(frames, device, args.seed, tmp)
         phase_trainer_timing(frames, device, args.seed, tmp, card, step_fps)
@@ -2563,8 +2684,8 @@ def main(argv=None):
         for part, extra in zip((times, errs, bounds), more):
             part.update(extra)
         took.append(time.perf_counter())
-        sparse_infer = phase_sparse_inference(model, frames, device, card,
-                                              conv3d_dets, tmp)
+        sparse_infer, sparse_fps, sparse_busy = phase_sparse_inference(
+            model, frames, device, card, conv3d_dets, tmp)
         del model
         took.append(time.perf_counter())
         sparse_train, sparse_trainer, sparse_dp = phase_sparse_train(
@@ -2579,6 +2700,16 @@ def main(argv=None):
     t12 = time.perf_counter()
     bench_launches = phase_bench(infer_fps[8])
     print(f"[12] phase 12 took {time.perf_counter() - t12} s")
+    t13 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        profile_launches = phase_profile(
+            {"phase 4": (infer_busy[8], 8e3 / infer_fps[8]),
+             "phase 10 (b)": (sparse_busy[8], 8e3 / sparse_fps[8]),
+             "phase 5": (step_busy[8], 8e3 / step_fps[8])}, tmp)
+    t13b = time.perf_counter()
+    entry_launches = phase_graft_entry(device)
+    print(f"[13] phase 13 took {time.perf_counter() - t13} s: (a) "
+          f"{t13b - t13}, (b)-(c) {time.perf_counter() - t13b} s")
 
     # each kernel's count on the path of the slice that brought it: the
     # fused VFE runs only for inference, dense_build and run_copy on the
@@ -2605,7 +2736,7 @@ def main(argv=None):
                "sparse1_train": sparse_train,
                "sparse1_trainer": sparse_trainer,
                "sparse1_data_parallel_rank0": sparse_dp, **spatial,
-               **bench_launches}
+               **bench_launches, **profile_launches, **entry_launches}
     entries = [kernel_entry(name, times, errs, bounds, launches, by_path)
                for name in KERNELS]
     entries[KERNELS.index("vfe_fused")].update(vfe_info)

@@ -173,6 +173,8 @@ def test_port_imports_no_jax():
             "import voxelnet_tpu_torch.data.split\n"
             "import voxelnet_tpu_torch.bench\n"
             "import voxelnet_tpu_torch.tools.card\n"
+            "import voxelnet_tpu_torch.tools.profile_step\n"
+            "import voxelnet_tpu_torch.graft_entry\n"
             "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
             "from voxelnet_tpu_torch.config import get_config\n"
             "get_config('Car').dump_yaml()\n"

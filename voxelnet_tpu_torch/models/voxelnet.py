@@ -220,18 +220,18 @@ def _versions(model: nn.Module) -> tuple[int, ...]:
                                                      model.buffers()))
 
 
-def make_inference_fn(config: VoxelNetConfig,
-                      device: torch.device | str = "cuda"):
-    """-> fn(model, points (B, N, 4) f32, num_points (B,) i32,
-    marks=None) -> Detections, all on `device`.
+def make_maps_fn(config: VoxelNetConfig, device: torch.device | str = "cuda"):
+    """-> fn(model, points (B, N, 4) f32, num_points (B,) i32, marks=None)
+    -> (cls logits (B, H', W', 2), reg (B, H', W', 14)), on `device`: the
+    inference graph up to the heads (voxelization, the VFE, the dense grid
+    or sparse1's table, the middle, the RPN), with no decode or NMS.
 
     The model's weights are folded and cast at the first call with it and
     again only after a parameter or buffer changes in place. `marks`: a
     list that receives (stage, CUDA event or host time) after each stage
-    of STAGES, for per-stage timing. With a model axis in
-    `config.system`, every process of a model group calls fn on the same
-    points; each computes its W slab of the grid, middle and RPN, and all
-    return the same detections.
+    of STAGES up to 'rpn'. With a model axis in `config.system`, every
+    process of a model group calls fn on the same points and each returns
+    the maps of its W slab.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -240,8 +240,7 @@ def make_inference_fn(config: VoxelNetConfig,
     plan = resolve_plan(config)
     dtype = getattr(torch, plan.dtype)
     spec = VoxelGridSpec.from_object_config(config.object)
-    anchors = torch.from_numpy(anchors_flat(config.object)).to(device)
-    obj, rpn_cfg = config.object, config.rpn
+    obj = config.object
     max_voxels = config.data.max_voxels
     table_vfe = config.compat.bn_over_padding
     mesh = model_mesh(config)
@@ -263,13 +262,13 @@ def make_inference_fn(config: VoxelNetConfig,
                                                    dtype, plan.middle))
         return cache["net"]
 
-    def fn(model: VoxelNet, points, num_points, marks=None) -> Detections:
+    def fn(model: VoxelNet, points, num_points, marks=None):
         with torch.no_grad():
             net = prepared(model)
         with torch.inference_mode():
             return run(net, points, num_points, marks)
 
-    def run(net: VoxelNet, points, num_points, marks) -> Detections:
+    def run(net: VoxelNet, points, num_points, marks):
         points = torch.as_tensor(points, dtype=torch.float32, device=device)
         num_points = torch.as_tensor(num_points, dtype=torch.int32,
                                      device=device)
@@ -297,20 +296,44 @@ def make_inference_fn(config: VoxelNetConfig,
             mark(marks, "dense", device)
             bev = net.middle(dense.to(dtype), mesh)
         mark(marks, "middle", device)
-        cls_logits, reg = net.rpn(bev, mesh, *columns)
+        maps = net.rpn(bev, mesh, *columns)
         mark(marks, "rpn", device)
-        b = cls_logits.shape[0]
-        probs = torch.sigmoid(cls_logits).reshape(b, -1)
-        boxes = box_coding.decode_deltas(
-            reg.reshape(b, -1, 7), anchors, obj.anchor_h,
-            yaw_mode=config.train.yaw_encoding)
-        mark(marks, "decode", device)
-        res = nms.nms_bev(boxes, probs, score_thresh=rpn_cfg.score_thres,
-                          iou_thresh=rpn_cfg.nms_thres,
-                          pre_topk=rpn_cfg.nms_pre_topk,
-                          post_topk=rpn_cfg.nms_post_topk,
-                          mode=rpn_cfg.nms_mode)
-        mark(marks, "nms", device)
+        return maps
+
+    return fn
+
+
+def make_inference_fn(config: VoxelNetConfig,
+                      device: torch.device | str = "cuda"):
+    """-> fn(model, points (B, N, 4) f32, num_points (B,) i32,
+    marks=None) -> Detections, all on `device`: make_maps_fn's maps, then
+    the box decode and NMS.
+
+    `marks`: a list that receives (stage, CUDA event or host time) after
+    each stage of STAGES, for per-stage timing. With a model axis in
+    `config.system`, every process of a model group calls fn on the same
+    points; all return the same detections.
+    """
+    maps_fn = make_maps_fn(config, device)
+    device = torch.device(device)
+    anchors = torch.from_numpy(anchors_flat(config.object)).to(device)
+    obj, rpn_cfg = config.object, config.rpn
+
+    def fn(model: VoxelNet, points, num_points, marks=None) -> Detections:
+        cls_logits, reg = maps_fn(model, points, num_points, marks)
+        with torch.inference_mode():
+            b = cls_logits.shape[0]
+            probs = torch.sigmoid(cls_logits).reshape(b, -1)
+            boxes = box_coding.decode_deltas(
+                reg.reshape(b, -1, 7), anchors, obj.anchor_h,
+                yaw_mode=config.train.yaw_encoding)
+            mark(marks, "decode", device)
+            res = nms.nms_bev(boxes, probs, score_thresh=rpn_cfg.score_thres,
+                              iou_thresh=rpn_cfg.nms_thres,
+                              pre_topk=rpn_cfg.nms_pre_topk,
+                              post_topk=rpn_cfg.nms_post_topk,
+                              mode=rpn_cfg.nms_mode)
+            mark(marks, "nms", device)
         return Detections(res.boxes, res.scores, res.valid)
 
     return fn
