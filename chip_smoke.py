@@ -1,6 +1,7 @@
 """Drive the PyTorch port's Car inference path, train step, trainer, data
 parallelism, learning run, viz, data tools, sparse1, spatial W-sharding,
-bench, profile tool and root entry points on one NVIDIA GPU.
+bench, profile tool and root entry points on one NVIDIA GPU, and hold its
+Car detections against the JAX package's.
 
     python3 chip_smoke.py [--seed N]
 
@@ -102,8 +103,9 @@ Phases, each fatal on failure:
      times, plain times (the sums over 5 calls a window), bounds and share
      of the bound, with cuDNN's Conv3d of the dense grid at the same batch
      (and the dense_build time beside it at B=2) as the forward's one-call
-     yardstick, one index_select as the gradient's, and the product's
-     time; (b) Car inference with sparse1 through cli.predict and
+     yardstick, one index_select as the gradient's, a fill and one
+     index_put_ (held equal to the map) as the occupancy map's, and the
+     product's time; (b) Car inference with sparse1 through cli.predict and
      make_inference_fn: detections against phase 4's conv3d run by score
      and box, vfe_fused, occupancy_map and sparse_conv launched and
      dense_build not (block 1's ReLU in sparse_conv's store: no pass of
@@ -160,7 +162,18 @@ Phases, each fatal on failure:
      against the same forward on the CPU within MAP_GATES' bf16 shares,
      vfe_fused and dense_build launched; (c) graft_entry.dryrun_multichip(4)
      and dryrun_multihost(2) with every rank on cuda:0 over gloo, each
-     rank's launches.
+     rank's launches;
+ 14. the port's detections against the JAX package's: make_model's Car
+     weights (their sha256 and the staged points' checked against the
+     fixture's meta.json) through make_inference_fn at full width on the
+     3 vendored frames, score_thres 0, for conv3d and sparse1 in bf16 and
+     f32; each run dumped as KITTI label files and compared box by box
+     with the JAX package's dumps of the same setting
+     (tests/fixtures/jax_car_dumps, written by tests/torch_jax_dumps.py)
+     by tools/ab_compare_dumps.py at BEV IoU 0.7: each JSON line held to
+     AB_GATES, one launch of each kernel of the path; then the NMS's
+     candidate pick (torch.topk and the stable sort nms_bev runs) timed at
+     B=8.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing it when
 torch sees no CUDA device or any check fails.
@@ -171,6 +184,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import hashlib
 import io
 import json
 import math
@@ -209,6 +223,7 @@ from voxelnet_tpu_torch.training.train_step import (TRAIN_STAGES,
                                                     create_train_state,
                                                     make_train_step)
 from voxelnet_tpu_torch.tools import profile_step, synthetic_smoke
+from voxelnet_tpu_torch.tools.ab_compare_dumps import compare, write_dumps
 from voxelnet_tpu_torch.tools.card import card_line
 from voxelnet_tpu_torch.training.trainer import Trainer
 from voxelnet_tpu_torch.utils import image_io, kitti
@@ -1866,6 +1881,20 @@ def phase_sparse_kernels(config, model, frames, device, card):
             if not tag:
                 errs.update(sparse_conv=err, occupancy_map=0.0)
             vals32 = vals.float()
+            # the occupancy map's one torch call: a fill of -1 and one
+            # index_put_ of the live rows' k at their cells
+            live_rows = counts.reshape(-1) > 0
+            occ_cells = ((coords[..., 0].long() * H + coords[..., 1]) * W
+                         + coords[..., 2] + torch.arange(
+                             B, device=device)[:, None] * n_cells
+                         ).reshape(-1)[live_rows]
+            occ_rows = torch.arange(counts.shape[1], dtype=torch.int32,
+                                    device=device).repeat(B)[live_rows]
+            occ_one_call = occ.reshape(-1)
+            check(torch.equal(occ_one_call.new_full(
+                occ_one_call.shape, -1).index_put_((occ_cells,), occ_rows),
+                occ_one_call), f"occupancy_map B={B}: the one torch call "
+                "differs")
 
             def fwd(v, relu=False):
                 return sparse_conv.sparse_conv(v, coords, counts, occ, bias,
@@ -1899,7 +1928,10 @@ def phase_sparse_kernels(config, model, frames, device, card):
                     timed(lambda: sparse_conv.occupancy_map(coords, counts,
                                                             grid)),
                     timed(lambda: sparse_conv.occupancy_map_plain(
-                        coords, counts, grid)), None),
+                        coords, counts, grid)),
+                    timed(lambda: occ_one_call.new_full(
+                        occ_one_call.shape, -1).index_put_(
+                            (occ_cells,), occ_rows))),
             })
             # the taps that reach the output: the rows of vals the forward
             # reads, the rows of dout the gradient gathers
@@ -1981,7 +2013,8 @@ def phase_sparse_kernels(config, model, frames, device, card):
     print("  one torch calls: sparse_conv cuDNN's Conv3d of block 1 on the "
           "dense grid at the same batch (built by dense_build, "
           "sparse_conv_grid at B=2), sparse_conv_grad one index_select of "
-          "the rows")
+          "the rows, occupancy_map a fill of -1 and one index_put_ of the "
+          "live rows")
     for name, (ms, by) in bounds.items():
         share = ms / times[name][0]["device_ms"]
         print(f"  {name}: bound {ms} ms ({by}) at these inputs, "
@@ -2583,6 +2616,148 @@ def phase_graft_entry(device) -> dict:
     return by_path
 
 
+# ---- phase 14: the port's detections against the JAX package's
+
+# the JAX package's detections for make_model's Car weights on the staged
+# vendored frames (tests/torch_jax_dumps.py writes them where JAX runs):
+# one directory of KITTI label files a setting, calib/ and meta.json
+AB_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "fixtures", "jax_car_dumps")
+# every setting: full Car width at score_thres 0 (20 boxes a frame after
+# NMS), the fused VFE on both sides; then the middle and compute dtype
+AB_BASE = {"rpn": {"score_thres": 0.0}, "data": {"vfe_backend": "fused"}}
+AB_SETTINGS = {
+    "conv3d_bf16": {},
+    "conv3d_f32": {"train": {"compute_dtype": "float32"}},
+    "sparse1_bf16": SPARSE1,
+    "sparse1_f32": merged(SPARSE1, {"train": {"compute_dtype": "float32"}}),
+}
+AB_LAUNCHED = {"conv3d": ("vfe_fused", "dense_build"),
+               "sparse1": ("vfe_fused", "occupancy_map", "sparse_conv")}
+AB_IOU = 0.7
+# each setting's gates by its compute dtype (the port is A, JAX is B).
+# make_model's random weights score the anchors alike: the 256 candidates
+# of a frame's NMS span 3.7e-4, half their neighbouring gaps are exact
+# ties, and the port's f32 scores lie up to 4.5e-6 from JAX's
+# (`tests/torch_jax_dumps.py --diagnose`), so the greedy NMS picks among
+# equals and the match rate reads summation order more than the stack.
+# Measured on an H100 80GB HBM3 at 700 W (two runs, equal): match rate
+# conv3d f32 0.85, sparse1 f32 0.6667, bf16 0.2167 / 0.2333 (the port's
+# CPU run: 0.7 / 0.7, 0.2333 / 0.15); matched boxes' mean BEV IoU 1.0 (f32)
+# and 0.9994-0.9996 (bf16); p95 score gap 0 (f32) and 1e-4 (bf16), in
+# units of the dumps' 4 decimals. The match-rate floors sit below the
+# least reading for that spread; the IoU and score gates hold the
+# matched boxes, where a wrong kernel shows first
+AB_GATES = {"f32": {"match_rate": 0.5, "mean_matched_bev_iou": 0.999,
+                    "p95_abs_score_diff": 1e-4},
+            "bf16": {"match_rate": 0.1, "mean_matched_bev_iou": 0.99,
+                     "p95_abs_score_diff": 1e-3}}
+
+
+def ab_config(name: str):
+    return get_config("Car", **merged(AB_BASE, AB_SETTINGS[name]))
+
+
+def ab_inputs(frames) -> tuple[np.ndarray, np.ndarray]:
+    """The vendored frames staged as phase 4 stages them."""
+    return predict.stage_points(frames, get_config("Car"),
+                                np.random.default_rng(SEED))
+
+
+def state_sha256(model) -> str:
+    """sha256 over the f32 bytes of the model's floating state_dict
+    entries, in sorted key order, each after its key."""
+    h = hashlib.sha256()
+    state = model.state_dict()
+    for key in sorted(state):
+        if state[key].is_floating_point():
+            h.update(key.encode())
+            h.update(state[key].detach().cpu().float().contiguous()
+                     .numpy().tobytes())
+    return h.hexdigest()
+
+
+def points_sha256(points: np.ndarray, num: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(points, np.float32).tobytes()
+                          + np.ascontiguousarray(num, np.int32).tobytes()
+                          ).hexdigest()
+
+
+def ab_compare_runs(device, tmp: str, fixture: str = AB_FIXTURE):
+    """make_model's Car weights through the port's make_inference_fn on
+    `device` in each of AB_SETTINGS, dumped to `tmp` and compared with
+    the fixture's dumps of the same setting (A the port, B JAX) ->
+    {setting: (compare()'s dict, launches)}. Raises where the weights or
+    the staged points are not the fixture's."""
+    with open(os.path.join(fixture, "meta.json")) as f:
+        meta = json.load(f)
+    model = make_model(get_config("Car"), device)
+    points, num = ab_inputs(sample_frames())
+    for what, got, want in (
+            ("weights", state_sha256(model), meta["weights_sha256"]),
+            ("staged points", points_sha256(points, num),
+             meta["points_sha256"])):
+        check(got == want, f"{what} sha256 {got} is not the fixture's "
+              f"{want}: regenerate it with tests/torch_jax_dumps.py where "
+              f"JAX runs")
+    out = {}
+    for name in AB_SETTINGS:
+        reset_launches()
+        det = make_inference_fn(ab_config(name), device)(model, points, num)
+        launches = launch_counts()
+        dump = os.path.join(tmp, name)
+        write_dumps(dump, det.boxes.cpu().numpy(), det.scores.cpu().numpy(),
+                    det.valid.cpu().numpy())
+        out[name] = (compare(dump, os.path.join(fixture, name),
+                             os.path.join(fixture, "calib"), AB_IOU),
+                     launches)
+    return out
+
+
+def phase_ab_compare(device, tmp: str, card: str) -> dict:
+    """The port's Car detections on the card against the JAX package's
+    from the same weights and points (AB_FIXTURE), box by box through
+    tools/ab_compare_dumps.py, in each of AB_SETTINGS, held to AB_GATES;
+    each run's launches -> {"ab_<setting>": launches}."""
+    print("[14] the port's detections against the JAX package's "
+          "(tests/fixtures/jax_car_dumps): Car, full width, 3 vendored "
+          f"frames, score_thres 0, BEV IoU >= {AB_IOU} [{card}]")
+    t0 = time.perf_counter()
+    runs = ab_compare_runs(device, tmp)
+    by_path = {}
+    for name, (res, launches) in runs.items():
+        middle, dtype = name.split("_")
+        print(f"  {name}: {json.dumps(res)}; launches {launches}")
+        check_launched(f"ab {name}", launches, AB_LAUNCHED[middle],
+                       set(KERNELS) - set(AB_LAUNCHED[middle]))
+        check(all(launches[k] == 1 for k in AB_LAUNCHED[middle]),
+              f"ab {name}: launches {launches}, expected one a kernel")
+        gate = AB_GATES[dtype]
+        check(res["frames"] == 3 and res["boxes_a"] == res["boxes_b"]
+              and res["match_rate"] >= gate["match_rate"]
+              and res["mean_matched_bev_iou"] is not None
+              and res["mean_matched_bev_iou"]
+              >= gate["mean_matched_bev_iou"]
+              and res["p95_abs_score_diff"] <= gate["p95_abs_score_diff"],
+              f"ab {name}: {res} misses the gates {gate}")
+        by_path[f"ab_{name}"] = launches
+    # the NMS's candidate pick at the inference B=8 batch: torch.topk
+    # against the stable descending sort that nms_bev runs (ties keep the
+    # lower anchor index, as lax.top_k does)
+    config = ab_config("conv3d_bf16")
+    scores = torch.rand((8, config.object.num_anchors),
+                        generator=torch.Generator(device=device)
+                        .manual_seed(SEED), device=device)
+    k = config.rpn.nms_pre_topk
+    pick = {"topk": timed(lambda: torch.topk(scores, k, dim=-1)),
+            "stable_sort": timed(lambda: torch.sort(
+                scores, dim=-1, descending=True, stable=True))}
+    print(f"  NMS candidate pick, B=8 x {scores.shape[1]} anchors, k={k}: "
+          f"{pick} [{card}]")
+    print(f"  gates {AB_GATES}; phase 14 took {time.perf_counter() - t0} s")
+    return by_path
+
+
 def kernel_entry(name, times, errs, bounds, launches, by_path) -> dict:
     """One kernel's object of the {"kernels": [...]} line: event and
     profiler device times of the kernel, its plain version and its one
@@ -2710,6 +2885,8 @@ def main(argv=None):
     entry_launches = phase_graft_entry(device)
     print(f"[13] phase 13 took {time.perf_counter() - t13} s: (a) "
           f"{t13b - t13}, (b)-(c) {time.perf_counter() - t13b} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        ab_launches = phase_ab_compare(device, tmp, card)
 
     # each kernel's count on the path of the slice that brought it: the
     # fused VFE runs only for inference, dense_build and run_copy on the
@@ -2736,7 +2913,8 @@ def main(argv=None):
                "sparse1_train": sparse_train,
                "sparse1_trainer": sparse_trainer,
                "sparse1_data_parallel_rank0": sparse_dp, **spatial,
-               **bench_launches, **profile_launches, **entry_launches}
+               **bench_launches, **profile_launches, **entry_launches,
+               **ab_launches}
     entries = [kernel_entry(name, times, errs, bounds, launches, by_path)
                for name in KERNELS]
     entries[KERNELS.index("vfe_fused")].update(vfe_info)

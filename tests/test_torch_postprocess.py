@@ -108,3 +108,28 @@ def test_nms_bev_matches_jax(mode):
     np.testing.assert_array_equal(got.scores.numpy(), np.asarray(want.scores))
     np.testing.assert_array_equal(got.boxes.numpy(), np.asarray(want.boxes))
     assert got.valid.sum() > 0
+
+
+@pytest.mark.parametrize("mode", ["rotated", "standup"])
+def test_nms_bev_breaks_ties_as_jax(mode):
+    """Scores on 6 levels, so most tie exactly, also across the pre_topk
+    cut: the port keeps the lower anchor index first, as lax.top_k does,
+    and so keeps JAX's boxes in JAX's slots."""
+    rng = np.random.default_rng(6)
+    B, A = 2, 300
+    boxes = np.zeros((B, A, 7), np.float32)
+    for b in range(B):
+        boxes[b, :, [0, 1, 4, 5, 6]] = _bev_boxes(rng, A, spread=10.0).T
+        boxes[b, :, 2] = rng.uniform(-2, 0, A)
+        boxes[b, :, 3] = rng.uniform(1, 2, A)
+    scores = (rng.integers(0, 6, (B, A)) / 6 + 0.1).astype(np.float32)
+    kw = dict(score_thresh=0.3, iou_thresh=0.1, pre_topk=128, post_topk=20,
+              mode=mode)
+    want = jax.jit(jax.vmap(lambda bx, sc: jax_nms.nms_bev(
+        bx, sc, platform="cpu", **kw)))(boxes, scores)
+    got = nms.nms_bev(torch.from_numpy(boxes), torch.from_numpy(scores), **kw)
+    differ = (got.boxes.numpy() != np.asarray(want.boxes)).any(-1)
+    assert not differ.any(), f"{int(differ.sum())} of {differ.size} slots differ"
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    np.testing.assert_array_equal(got.scores.numpy(), np.asarray(want.scores))
+    assert got.valid.sum() >= 20

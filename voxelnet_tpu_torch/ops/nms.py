@@ -47,14 +47,18 @@ def nms_bev(boxes3d: torch.Tensor, scores: torch.Tensor, *,
     suppressed). mode 'rotated' is exact rotated-BEV IoU, 'standup' the
     axis-aligned IoU of the rotated corners' bounding boxes.
 
-    torch.topk breaks exact score ties in no fixed order, where lax.top_k
-    keeps the lower index: compare detections by score and box, not slot.
+    Exact score ties keep the lower anchor index first, as lax.top_k
+    does: a stable descending sort in place of torch.topk, which orders
+    ties in no fixed way (an untrained net's scores tie by the dozen, and
+    the greedy NMS then keeps other boxes than JAX's).
     """
     scores = scores.to(torch.float32)
     gated = torch.where(scores >= score_thresh, scores,
                         torch.full_like(scores, -1.0))
     k = min(pre_topk, scores.shape[-1])
-    top_scores, top_idx = torch.topk(gated, k, dim=-1)
+    top_scores, top_idx = torch.sort(gated, dim=-1, descending=True,
+                                     stable=True)
+    top_scores, top_idx = top_scores[..., :k], top_idx[..., :k]
     cand = torch.gather(boxes3d.to(torch.float32), 1,
                         top_idx[..., None].expand(*top_idx.shape, 7))
     cand_valid = top_scores >= score_thresh
