@@ -105,12 +105,17 @@ Phases, each fatal on failure:
      (and the dense_build time beside it at B=2) as the forward's one-call
      yardstick, one index_select as the gradient's, a fill and one
      index_put_ (held equal to the map) as the occupancy map's, and the
-     product's time; (b) Car inference with sparse1 through cli.predict and
-     make_inference_fn: detections against phase 4's conv3d run by score
-     and box, vfe_fused, occupancy_map and sparse_conv launched and
-     dense_build not (block 1's ReLU in sparse_conv's store: no pass of
-     its own), per-stage times and a profiler table at B=1 and B=8, the
-     tiny f32 grid on the card against the CPU; (c) the train step with
+     product's time; the occupancy map's host us a call beside its
+     yardstick's (a host clock over back-to-back calls, no sync), and its
+     device ops a call (torch.profiler): one kernel, no memset; every
+     profiler time from a profile that kept each op of its calls (each
+     port kernel's events equal to its launches); (b) Car inference
+     with sparse1 through cli.predict and make_inference_fn: detections
+     against phase 4's conv3d run by score and box, vfe_fused,
+     occupancy_map and sparse_conv launched and dense_build not (block
+     1's ReLU in sparse_conv's store: no pass of its own), per-stage
+     times and a profiler table at B=1 and B=8, the tiny f32 grid on the
+     card against the CPU; (c) the train step with
      sparse1 at Car B=8: the loss falls, run_copy, the occupancy kernel
      and both sparse kernels launched and dense_build not, step time,
      stage split and peak memory, one tiny f32 step on the card
@@ -224,7 +229,8 @@ from voxelnet_tpu_torch.training.train_step import (TRAIN_STAGES,
                                                     make_train_step)
 from voxelnet_tpu_torch.tools import profile_step, synthetic_smoke
 from voxelnet_tpu_torch.tools.ab_compare_dumps import compare, write_dumps
-from voxelnet_tpu_torch.tools.card import card_line
+from voxelnet_tpu_torch.tools.card import (card_line, cuda_ms, device_ms,
+                                           device_ops, host_us)
 from voxelnet_tpu_torch.training.trainer import Trainer
 from voxelnet_tpu_torch.utils import image_io, kitti
 
@@ -260,7 +266,7 @@ HOST_VOX_REPS = 5
 CAR_PARAMS = 6_809_392
 # the PR whose design each kernel runs
 DESIGN_PR = {"vfe_fused": 3, "dense_build": 1, "run_copy": 2,
-             "sparse_conv": 9, "sparse_conv_grad": 8, "occupancy_map": 9}
+             "sparse_conv": 9, "sparse_conv_grad": 8, "occupancy_map": 15}
 # timed shapes beside each kernel's Car B=2 one: the fused VFE at the
 # inference B=8 batch; the dense grid in f32 (train) and its backward (a
 # torch gather, no kernel of the port); sparse_conv in f32, with its ReLU
@@ -283,50 +289,6 @@ class CheckFailed(RuntimeError):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise CheckFailed(what)
-
-
-def cuda_ms(fn, reps: int = 50, windows: int = 5, warmup: int = 3) -> float:
-    """Time of one fn() call in ms: after `warmup` calls, one CUDA-event
-    pair around `reps` back-to-back calls, divided by `reps`; the median
-    over `windows` such windows. Where the host work of a call outlasts
-    the kernels it launches, the device waits and this time is the
-    host's."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
-
-
-def device_ms(fn, reps: int = 50, attempts: int = 3) -> float:
-    """The device's self time of every kernel that one fn() call launches,
-    in ms: torch.profiler over `reps` back-to-back calls, divided by `reps`.
-    Host time between the kernels is not in it. A profile that came back
-    with no device time (CUPTI dropped a short window's records once, on
-    an H100 80GB HBM3: occupancy_map at B=8) is taken again, up to
-    `attempts` profiles; raises when none recorded the device."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as p:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        busy = sum(e.self_device_time_total for e in p.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-        if busy > 0:
-            return busy / 1e3 / reps
-    raise CheckFailed(f"torch.profiler recorded no device time in "
-                      f"{attempts} profiles of {reps} calls")
 
 
 def timed(fn, reps: int = 50) -> dict:
@@ -1891,10 +1853,23 @@ def phase_sparse_kernels(config, model, frames, device, card):
             occ_rows = torch.arange(counts.shape[1], dtype=torch.int32,
                                     device=device).repeat(B)[live_rows]
             occ_one_call = occ.reshape(-1)
-            check(torch.equal(occ_one_call.new_full(
-                occ_one_call.shape, -1).index_put_((occ_cells,), occ_rows),
-                occ_one_call), f"occupancy_map B={B}: the one torch call "
-                "differs")
+
+            def occ_kernel():
+                return sparse_conv.occupancy_map(coords, counts, grid)
+
+            def occ_torch():
+                return occ_one_call.new_full(occ_one_call.shape,
+                                             -1).index_put_((occ_cells,),
+                                                            occ_rows)
+
+            check(torch.equal(occ_torch(), occ_one_call),
+                  f"occupancy_map B={B}: the one torch call differs")
+            ops = device_ops(occ_kernel)
+            print(f"  occupancy_map B={B}: device ops a call {ops}")
+            check([(profile_step.port_kernel(name), calls)
+                   for name, calls in ops.items()] == [("occupancy_map", 1)],
+                  f"occupancy_map B={B}: a call ran {ops}, not one occupancy "
+                  "kernel and no memset")
 
             def fwd(v, relu=False):
                 return sparse_conv.sparse_conv(v, coords, counts, occ, bias,
@@ -1925,13 +1900,10 @@ def phase_sparse_kernels(config, model, frames, device, card):
                     timed(lambda: fwd(vals32)),
                     timed(lambda: fwd_plain(vals32), 5), None),
                 f"occupancy_map{tag}": (
-                    timed(lambda: sparse_conv.occupancy_map(coords, counts,
-                                                            grid)),
+                    {**timed(occ_kernel), "host_us": host_us(occ_kernel)},
                     timed(lambda: sparse_conv.occupancy_map_plain(
                         coords, counts, grid)),
-                    timed(lambda: occ_one_call.new_full(
-                        occ_one_call.shape, -1).index_put_(
-                            (occ_cells,), occ_rows))),
+                    {**timed(occ_torch), "host_us": host_us(occ_torch)}),
             })
             # the taps that reach the output: the rows of vals the forward
             # reads, the rows of dout the gradient gathers
@@ -2007,7 +1979,8 @@ def phase_sparse_kernels(config, model, frames, device, card):
             del dense
     for name, parts in times.items():
         print(f"  {name}: " + ", ".join(
-            f"{what} {t['ms']} ms (device {t['device_ms']} ms)"
+            f"{what} {t['ms']} ms (device {t['device_ms']} ms"
+            + (f", host {t['host_us']} us" if "host_us" in t else "") + ")"
             for what, t in zip(("kernel", "plain", "one torch call"), parts)
             if t is not None) + f" [{card}]")
     print("  one torch calls: sparse_conv cuDNN's Conv3d of block 1 on the "
@@ -2765,12 +2738,16 @@ def kernel_entry(name, times, errs, bounds, launches, by_path) -> dict:
     def cols(prefix, key):
         k, p, lib = times[key]
         out = {f"{prefix}ms": k["ms"], f"{prefix}device_ms": k["device_ms"]}
+        if "host_us" in k:
+            out[f"{prefix}host_us"] = k["host_us"]
         if p is not None:
             out.update({f"{prefix}plain_ms": p["ms"],
                         f"{prefix}plain_device_ms": p["device_ms"]})
         if lib is not None and prefix:
             out.update({f"{prefix}library_ms": lib["ms"],
                         f"{prefix}library_device_ms": lib["device_ms"]})
+        if lib is not None and "host_us" in lib:
+            out[f"{prefix}library_host_us"] = lib["host_us"]
         out[f"{prefix}bound_ms"], out[f"{prefix}bound_by"] = bounds.get(
             key, (None, None))
         return out

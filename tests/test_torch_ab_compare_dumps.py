@@ -14,9 +14,9 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 from torch_port_helpers import (TINY, configs, jax_variables, merged,
                                 random_points, torch_model)
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 import chip_smoke
 from voxelnet_tpu_torch.tools import ab_compare_dumps
@@ -33,15 +33,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # some other boxes; measured on the CPU at this test's seed 14: 0.7,
 # 0.9992, 1e-4 (seeds 14-18: 0.7-0.875, >= 0.9981, <= 2e-4)
 BF16_MATCH_RATE, BF16_MEAN_IOU, BF16_P95_SCORE = 0.6, 0.995, 1e-3
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads: the test runner's workers share the cores."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _boxes(rng, n):

@@ -16,6 +16,7 @@ import pytest
 import torch
 from torch_port_helpers import (TINY, configs, init_scale_biases,
                                 jax_variables, merged, torch_model)
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 from voxelnet_tpu.ops.voxelize import VoxelGridSpec as JaxSpec
 from voxelnet_tpu_torch import bench
@@ -26,16 +27,6 @@ from voxelnet_tpu_torch.ops.voxelize import VoxelGridSpec
 # bench's GT box at x = 20 m lies inside it
 STAGE = merged(TINY, object={"x_min": 12.8, "x_max": 25.6})
 BATCH = 2
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads: the test runner's workers share the cores,
-    and torch's default of one thread per core oversubscribes them."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def write_frames(root, n_frames=4 * BATCH, n=2600, seed=3):

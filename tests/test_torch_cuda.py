@@ -371,29 +371,71 @@ def test_sparse_conv_tile_edges_match_plain(cuda_device, dtype, stride_d,
 
 def test_occupancy_kernel_matches_plain(cuda_device):
     """The occupancy kernel bit-equal to occupancy_map_plain, padding rows
-    carrying garbage coords in and out of the grid; one launch a call."""
+    carrying garbage coords in and out of the grid, frame 2 all padding;
+    grids of one block and of several, with cells a multiple of 4 (16-byte
+    stores) and not; then two frames with every cell live. One launch a
+    call, and the map is the call's whole storage: B * D * H * W int32."""
     rng = np.random.default_rng(5)
-    for grid, K in (((10, 40, 36), 512), ((3, 3, 5), 45), ((2, 3, 4), 24)):
-        coords, counts = _sparse_table(rng, grid, K)
+    cases = [(grid, *_sparse_table(rng, grid, K)) for grid, K in (
+        ((10, 40, 36), 512), ((7, 33, 37), 3000), ((3, 3, 5), 45),
+        ((2, 3, 4), 24))]
+    for grid in ((3, 3, 5), (4, 40, 36)):
+        D, H, W = grid
+        lin = np.arange(D * H * W)
+        coords = np.stack([lin // (H * W), lin // W % H, lin % W], 1)
+        cases.append((grid, np.stack([coords] * 2).astype(np.int32),
+                      np.ones((2, len(lin)), np.int32)))
+    for grid, coords, counts in cases:
         c = torch.from_numpy(coords).to(cuda_device)
         n = torch.from_numpy(counts).to(cuda_device)
         before = sparse_conv.occupancy_launches
         got = sparse_conv.occupancy_map(c, n, grid)
         torch.cuda.synchronize()
         assert sparse_conv.occupancy_launches == before + 1
-        assert got.shape == (3, *grid) and got.dtype == torch.int32
+        assert got.shape == (len(counts), *grid) and got.dtype == torch.int32
+        assert got.is_contiguous() and got.storage_offset() == 0
+        assert got.untyped_storage().nbytes() == got.numel() * 4
         assert torch.equal(got.cpu(), sparse_conv.occupancy_map_plain(
-            c.cpu(), n.cpu(), grid))
+            c.cpu(), n.cpu(), grid)), grid
 
 
 # a live voxel at y = H of a (4, 5, 6) grid, whose flat index lands inside
-# the grid; the call's synchronisation must raise a RuntimeError (exit 3)
+# the grid, the other rows padding; the call's synchronisation must raise
+# a RuntimeError (exit 3)
 _OUTSIDE_THE_GRID = """
 import torch
 from voxelnet_tpu_torch.kernels import sparse_conv
 c = torch.zeros(1, 8, 3, dtype=torch.int32, device="cuda")
 c[0, 0, 1] = 5
-n = torch.ones(1, 8, dtype=torch.int32, device="cuda")
+n = torch.zeros(1, 8, dtype=torch.int32, device="cuda")
+n[0, 0] = 1
+try:
+    sparse_conv.occupancy_map(c, n, (4, 5, 6))
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised", type(e).__name__, e)
+    raise SystemExit(3)
+"""
+
+# rows 0-3 of a (4, 5, 6) grid live at cells 0, 7, 30 and 31, then padding,
+# with one fault: rows 1 and 2 swapped, row 2 at row 1's cell, or row 0
+# padding before live rows; the call's synchronisation must raise (exit 3)
+_OUT_OF_ORDER = """
+import sys
+import torch
+from voxelnet_tpu_torch.kernels import sparse_conv
+lin = torch.tensor([0, 7, 30, 31, 0, 0, 0, 0])
+c = torch.stack([lin // 30, lin // 6 % 5, lin % 6], 1)[None]
+c = c.to("cuda", torch.int32).contiguous()
+n = torch.tensor([[1, 1, 1, 1, 0, 0, 0, 0]], dtype=torch.int32,
+                 device="cuda")
+fault = sys.argv[1]
+if fault == "swap":
+    c[0, [1, 2]] = c[0, [2, 1]]
+elif fault == "duplicate":
+    c[0, 2] = c[0, 1]
+else:
+    n[0, 0] = 0
 try:
     sparse_conv.occupancy_map(c, n, (4, 5, 6))
     torch.cuda.synchronize()
@@ -403,15 +445,31 @@ except RuntimeError as e:
 """
 
 
+def _run_alone(script: str, *args: str) -> subprocess.CompletedProcess:
+    """Run a trap script in a process of its own from the repo root: a
+    trap leaves the process's CUDA context unusable."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return subprocess.run([sys.executable, "-c", script, *args], cwd=root,
+                          capture_output=True, text=True, timeout=300)
+
+
 def test_occupancy_kernel_traps_on_live_voxels_outside_the_grid(
         cuda_device):
     """The kernel's side of occupancy_map_plain's ValueError: the trap
     leaves the process's CUDA context unusable, so it runs in a process of
     its own."""
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    proc = subprocess.run([sys.executable, "-c", _OUTSIDE_THE_GRID],
-                          cwd=root, capture_output=True, text=True,
-                          timeout=300)
+    proc = _run_alone(_OUTSIDE_THE_GRID)
+    assert proc.returncode == 3, proc.stderr[-2000:]
+    assert "raised" in proc.stdout
+
+
+@pytest.mark.parametrize("fault", ["swap", "duplicate", "padding_first"])
+def test_occupancy_kernel_traps_on_live_voxels_out_of_order(cuda_device,
+                                                            fault):
+    """Live rows out of strictly ascending cell order, or a live row after
+    a padding row (which the kernel's search cannot place), trap the
+    kernel, as the plain version raises on them."""
+    proc = _run_alone(_OUT_OF_ORDER, fault)
     assert proc.returncode == 3, proc.stderr[-2000:]
     assert "raised" in proc.stdout
 
@@ -419,7 +477,10 @@ def test_occupancy_kernel_traps_on_live_voxels_outside_the_grid(
 def test_sparse_conv_wrappers_refuse_what_the_kernels_do_not_take(
         cuda_device):
     i32 = dict(dtype=torch.int32, device=cuda_device)
-    c, n = torch.zeros(1, 8, 3, **i32), torch.ones(1, 8, **i32)
+    # 8 live voxels at cells 0-7 of a (4, 5, 6) grid
+    lin = torch.arange(8, **i32)
+    c = torch.stack([lin * 0, lin // 6, lin % 6], 1)[None].contiguous()
+    n = torch.ones(1, 8, **i32)
     occ = sparse_conv.occupancy_map(c, n, (4, 5, 6))
     vals = torch.zeros(1, 8, 27, 64, device=cuda_device)
     bias = torch.zeros(64, device=cuda_device)

@@ -12,6 +12,7 @@ import pytest
 import torch
 from torch_port_helpers import (TINY, configs, jax_variables, merged,
                                 random_points, step_batch, torch_model)
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 from voxelnet_tpu_torch import convert
 from voxelnet_tpu_torch.config import get_config, resolve_plan

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import torch_model
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 from voxelnet_tpu_torch import graft_entry
 from voxelnet_tpu_torch.config import get_config
@@ -29,15 +30,6 @@ MAP_MAX_SHARE, MAP_MEAN_SHARE = 0.05, 0.01
 # train-stage tolerances of tests/test_torch_bench.py (XLA:CPU's sequential
 # f32 BN statistics move JAX's step; the docstring there has the figures)
 STEP_LOSS_REL, STEP_GNORM_REL = 5e-4, 1e-2
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads: the test runner's workers share the cores."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

@@ -14,6 +14,7 @@ import torch
 from torch_port_helpers import (LABEL_LINES, TINY, configs, jax_variables,
                                 merged, random_points, torch_model,
                                 write_mini_kitti)
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 from voxelnet_tpu.data import dataset as jax_dataset
 from voxelnet_tpu.ops import voxelize as jax_vox

@@ -24,6 +24,7 @@ from voxelnet_tpu_torch.tools import synthetic_smoke as tool
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_jax_init  # noqa: E402
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 # a small f32 grid over three cars of the first batch
 TINY_YAML = """object: {x_min: 16.0, x_max: 41.6, y_min: -16.0, y_max: -3.2}
@@ -31,16 +32,6 @@ data: {max_points: 2048, max_voxels: 256, max_gt_boxes: 8}
 train: {compute_dtype: float32}
 """
 BATCH = 2
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads: the test runner's workers share the cores,
-    and torch's default of one thread per core oversubscribes them."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

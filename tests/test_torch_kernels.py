@@ -12,6 +12,7 @@ import torch
 from torch_port_helpers import (TINY, assert_bf16_close, configs,
                                 jax_variables, merged, random_points,
                                 torch_model)
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 from voxelnet_tpu.kernels.vfe_fused import voxelize_vfe_fused
 from voxelnet_tpu.models.scatter import scatter_to_dense_streamed

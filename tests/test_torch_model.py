@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import TINY, configs, jax_variables, merged, torch_model
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 from voxelnet_tpu.models.bn_fold import fold_bn_variables
 from voxelnet_tpu.models.middle import MiddleLayers

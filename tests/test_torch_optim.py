@@ -13,6 +13,7 @@ import torch
 from torch_port_helpers import (TINY, configs, init_scale_biases,
                                 jax_variables, merged, step_batch,
                                 torch_model)
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 from voxelnet_tpu_torch import convert
 from voxelnet_tpu_torch.config import get_config

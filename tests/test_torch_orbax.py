@@ -18,22 +18,13 @@ import pytest
 import torch
 from torch_port_helpers import (TINY, configs, jax_variables, merged,
                                 random_points)
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 from voxelnet_tpu_torch import convert
 from voxelnet_tpu_torch.tools import orbax_to_npz
 
 OVERRIDES = merged(TINY, rpn={"score_thres": 0.0},
                    train={"yaw_encoding": "sin"})
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads: the test runner's workers share the cores,
-    and torch's default of one thread per core oversubscribes them."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

@@ -1,6 +1,6 @@
 """The port's data parallelism on the CPU: two worker processes in a gloo
 group (tests/torch_dp_worker.py, a file:// rendezvous under tmp_path, 2
-threads each, 120 s each at most) against one process on the global batch,
+threads each, 300 s each at most) against one process on the global batch,
 and against the JAX package's train step on a 2-device mesh.
 
 Port against port runs in f64, the model's master weights included (the
@@ -19,6 +19,7 @@ from torch_port_helpers import (TINY, configs, fake_group, finish_workers,
                                 init_scale_biases, jax_variables, merged,
                                 start_workers, step_batch, torch_model,
                                 write_mini_kitti)
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 from voxelnet_tpu_torch.cli import train as train_cli
 from voxelnet_tpu_torch.config import get_config, resolve_plan
@@ -42,14 +43,6 @@ TRAINER = merged(TINY, object={"x_min": 3.2, "x_max": 9.6, "y_min": -3.2,
                  train={"compute_dtype": "float64", "num_epochs": 1,
                         "num_workers": 2, "upload_points": "f32"},
                  val={"batch_size": 2})
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def run_workers(tmp: str, cases: dict, world: int = 2) -> list[dict]:

@@ -10,6 +10,7 @@ from voxelnet_tpu.ops import box_coding as jax_box
 from voxelnet_tpu.ops import iou as jax_iou
 from voxelnet_tpu.ops import nms as jax_nms
 from voxelnet_tpu_torch.ops import box_coding, iou, nms
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 
 def _bev_boxes(rng, n, spread=6.0):

@@ -12,6 +12,7 @@ import re
 import pytest
 import torch
 from torch_port_helpers import TINY, merged
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 from voxelnet_tpu_torch import kernels
 from voxelnet_tpu_torch.config import get_config
@@ -21,15 +22,6 @@ from voxelnet_tpu_torch.tools import profile_step
 # lies inside it (tests/test_torch_bench.py)
 STAGE = merged(TINY, object={"x_min": 12.8, "x_max": 25.6})
 PID, TID = 1, 11
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads: the test runner's workers share the cores."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def cpu_op(name, ts, dur, ext, dims):

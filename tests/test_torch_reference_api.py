@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import TINY, configs, jax_variables
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 from voxelnet_tpu import reference_api as jax_ref
 from voxelnet_tpu_torch import convert
@@ -27,16 +28,6 @@ LABELS = [[
     "Car 0.00 0 -0.3 100.00 150.00 200.00 220.00 1.50 1.60 4.00 6.90 "
     "1.80 30.50 -0.31\n",
 ]]
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads: the test runner's workers share the cores,
-    and torch's default of one thread per core oversubscribes them."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.mark.parametrize("class_name", ["Car", "Pedestrian", "Cyclist"])

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import configs, random_points
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 from voxelnet_tpu.kernels.dense_build import dense_build_pallas
 from voxelnet_tpu.kernels.voxelize_pallas import (build_voxel_table,

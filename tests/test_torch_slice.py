@@ -13,6 +13,7 @@ import pytest
 import torch
 from torch_port_helpers import (TINY, configs, jax_variables, merged,
                                 random_points, torch_model)
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 from voxelnet_tpu_torch.config import (BEV_FOLDS, DENSE_BUILDS,
                                        MIDDLE_BACKENDS, VFE_BACKENDS,

@@ -12,21 +12,11 @@ import pytest
 import torch
 from torch_port_helpers import (TINY, configs, jax_variables, merged,
                                 random_points, torch_model)
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 from voxelnet_tpu_torch.config import get_config, resolve_plan
 from voxelnet_tpu_torch.kernels.sparse_conv import occupancy_map
 from voxelnet_tpu_torch.models.sparse_conv import sparse_conv3x3
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads: the test runner's workers share the cores,
-    and torch's default of one thread per core oversubscribes them (the
-    gloo workers of tests/test_torch_parallel.py then outlast their
-    timeout)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 # small grid of the conv tests: odd sizes, so no axis hides another
@@ -335,13 +325,44 @@ def test_one_parameter_tree_for_both_paths():
                          ids=["z_below", "y_past", "x_past"])
 def test_occupancy_map_refuses_live_voxels_outside_the_grid(axis, value):
     """A live row outside the grid raises, also where its flat index lands
-    inside the grid (y or x past its axis); a padding row there does not."""
+    inside the grid (y or x past its axis); a padding row there does not.
+    The row is the frame's last live one, so that as padding it trails."""
     _, coords, counts = _table(seed=3)
-    coords[1, 0, axis] = value
+    last = int((counts[1] > 0).sum()) - 1
+    coords[1, last, axis] = value
     with pytest.raises(ValueError, match="outside the grid"):
         occupancy_map(torch.from_numpy(coords), torch.from_numpy(counts),
                       (D, H, W))
-    counts[1, 0] = 0
+    counts[1, last] = 0
     occ = occupancy_map(torch.from_numpy(coords), torch.from_numpy(counts),
                         (D, H, W))
     assert int((occ[1] >= 0).sum()) == int((counts[1] > 0).sum())
+
+
+@pytest.mark.parametrize("fault", ["swap", "duplicate", "padding_first"])
+def test_occupancy_map_refuses_live_voxels_out_of_order(fault):
+    """Live rows of a frame whose cell ids do not ascend strictly, or a
+    live row after a padding row, raise (the order the kernel needs and
+    every voxelizer gives); the trailing padding rows' garbage coords, in
+    and out of the grid, do not. A live row outside the grid is named
+    first."""
+    _, coords, counts = _table(seed=3)
+    live = int((counts[1] > 0).sum())
+    pad = coords[1, live:]
+    assert ((pad < 0) | (pad >= np.asarray([D, H, W]))).any()
+    before = occupancy_map(torch.from_numpy(coords), torch.from_numpy(counts),
+                           (D, H, W))
+    assert int((before[1] >= 0).sum()) == live
+    if fault == "swap":
+        coords[1, [3, 4]] = coords[1, [4, 3]]
+    elif fault == "duplicate":
+        coords[1, 4] = coords[1, 3]
+    else:
+        counts[1, 3] = 0
+    with pytest.raises(ValueError, match="strictly ascending"):
+        occupancy_map(torch.from_numpy(coords), torch.from_numpy(counts),
+                      (D, H, W))
+    coords[1, 0, 1] = H
+    with pytest.raises(ValueError, match="outside the grid"):
+        occupancy_map(torch.from_numpy(coords), torch.from_numpy(counts),
+                      (D, H, W))

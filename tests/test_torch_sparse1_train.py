@@ -15,6 +15,7 @@ from test_torch_train import (F64, REMAT, check_f64_step,
                               run_jax_f64_step)
 from torch_port_helpers import (TINY, merged, random_points, step_batch,
                                 write_mini_kitti)
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 from voxelnet_tpu_torch.config import get_config
 from voxelnet_tpu_torch.models import scatter
@@ -23,17 +24,6 @@ from voxelnet_tpu_torch.models.voxelnet import build_model, make_inference_fn
 from voxelnet_tpu_torch.training.train_step import (create_train_state,
                                                     make_eval_step,
                                                     make_train_step)
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads: the test runner's workers share the cores,
-    and torch's default of one thread per core oversubscribes them (the
-    gloo workers of tests/test_torch_parallel.py then outlast their
-    timeout)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 SPARSE = {"data": {"middle_backend": "sparse1"}}

@@ -14,6 +14,7 @@ import torch
 from test_torch_sparse1 import (BLOCKS, COUT, MIDDLE_GRID, SPARSE1, D, H, W,
                                 _jax, _table, _weights)
 from torch_port_helpers import merged, random_points, step_batch
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 from voxelnet_tpu_torch.config import get_config
 from voxelnet_tpu_torch.kernels import sparse_conv as sc
@@ -25,15 +26,6 @@ from voxelnet_tpu_torch.models.voxelnet import (build_model,
 from voxelnet_tpu_torch.training.train_step import (create_train_state,
                                                     make_eval_step,
                                                     make_train_step)
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads: the test runner's workers share the cores."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _port(feat, coords, counts, weight, bias, stride_d, pad_d, w_window=None,

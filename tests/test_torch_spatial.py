@@ -1,7 +1,7 @@
 """Spatial W-sharding of the port (`system.num_model_shards > 1`,
 parallel/spatial.py) on the CPU, in gloo worker processes
 (tests/torch_dp_worker.py: a launch of 2 ranks, then one of 4, a thread
-and 120 s each at most) at the tiny grid (10 x 64 x 64: W slabs of 32 at
+and 300 s each at most) at the tiny grid (10 x 64 x 64: W slabs of 32 at
 M = 2, 16 at M = 4):
 
   (i) the units: `halo_exchange` and `gather_w` under
@@ -31,6 +31,7 @@ from torch_port_helpers import (TINY, configs, finish_workers,
                                 jax_variables, jax_voxel_table, merged,
                                 start_workers, step_batch, torch_model,
                                 write_mini_kitti)
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 from voxelnet_tpu_torch.config import get_config
 from voxelnet_tpu_torch.models.voxelnet import build_model
@@ -54,14 +55,6 @@ TRAINER = merged(TINY, object={"x_min": 3.2, "x_max": 9.6, "y_min": -3.2,
                  train={"compute_dtype": "float64", "num_epochs": 1,
                         "num_workers": 2, "upload_points": "f32"},
                  val={"batch_size": 2})
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _overrides(middle: str) -> dict:

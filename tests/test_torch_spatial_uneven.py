@@ -2,7 +2,7 @@
 where the RPN's units of rpn.block1_stride x 4 columns do not divide
 evenly among M ranks, parallel/spatial.py::slab) on the CPU, in gloo
 worker processes (tests/torch_dp_worker.py: a launch of 3 ranks and one of
-2, started together, a thread and 120 s each at most) at tiny grids:
+2, started together, a thread and 300 s each at most) at tiny grids:
 
   (i) the partition: `slab` on the Car, Pedestrian and tiny grids, empty
       slabs past the last unit, the refusal of a width that is not a
@@ -30,6 +30,7 @@ from torch_dp_worker import CONV_KINDS, conv_kind, conv_kind_grads, step_case
 from torch_port_helpers import (TINY, configs, fake_group, finish_workers,
                                 jax_variables, jax_voxel_table, merged,
                                 start_workers, step_batch, torch_model)
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 from voxelnet_tpu_torch.config import get_config, resolve_plan
 from voxelnet_tpu_torch.kernels import sparse_conv as sparse_kernels
@@ -51,14 +52,6 @@ JAX_MESHES = ("w64-1x3-conv3d", "w40-1x2-sparse1")
 GRADCHECK_WIDTHS = {"uneven": (4, 3, 2), "empty": (3, 2, 0)}
 KIND_WIDTHS = {"3-uneven": (10, 8, 6), "3-empty": (12, 12, 0),
                "2-uneven": (14, 10)}
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _overrides(name: str, dtype: str = "float64") -> dict:

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from voxelnet_tpu_torch.tools import synthetic_smoke as tool
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

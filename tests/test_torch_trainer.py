@@ -16,6 +16,7 @@ import pytest
 import torch
 from torch_port_helpers import (TINY, configs, init_scale_biases,
                                 jax_variables, merged, write_mini_kitti)
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 from voxelnet_tpu_torch import convert
 from voxelnet_tpu_torch.config import get_config
@@ -30,16 +31,6 @@ QUIET = dict(print_interval=1000, summary_interval=1000, val_interval=1000)
 # these tests train whole epochs on the CPU
 SMALL = merged(TINY, object={"x_min": 3.2, "x_max": 9.6, "y_min": -3.2,
                              "y_max": 3.2})
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads: the test runner's workers share the cores,
-    and torch's default of one thread per core oversubscribes them."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _state_dict(model):

@@ -21,12 +21,12 @@ import zlib
 import cv2
 import numpy as np
 import pytest
-import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 from scipy.spatial import cKDTree
 from torch_port_helpers import (LABEL_LINES, TINY, configs, merged,
                                 write_mini_kitti)
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 from voxelnet_tpu.data import augment as jax_augment
 from voxelnet_tpu.utils import viz as jax_viz
@@ -40,16 +40,6 @@ EMPTY_MAX_PX = 2
 MEAN_LINE = 24.0
 MEAN_ALL = 4.0
 MEAN_DRAWING = 8.0
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads: the test runner's workers share the cores,
-    and torch's default of one thread per core oversubscribes them."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 # --- fill_convex_poly and raster_iou_2d: bit-equal ---------------------------

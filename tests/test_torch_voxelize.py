@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import TINY, configs, merged, random_points
+from torch_port_helpers import two_torch_threads  # noqa: F401 (autouse)
 
 from voxelnet_tpu.ops import anchors as jax_anchors
 from voxelnet_tpu.ops import voxelize as jax_vox

@@ -19,6 +19,18 @@ TINY = {
 }
 
 
+@pytest.fixture(autouse=True)
+def two_torch_threads():
+    """Two intra-op threads for each test of a file that imports this
+    fixture: the test runner's workers share the cores, and torch's
+    default of one thread per core oversubscribes them (the gloo workers
+    of tests/test_torch_parallel.py then outlast their timeout)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def merged(base: dict, **extra) -> dict:
     out = {k: dict(v) for k, v in base.items()}
     for group, values in extra.items():
@@ -238,7 +250,9 @@ def fake_group(monkeypatch, world: int, rank: int = 0) -> None:
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_dp_worker.py")
-WORKER_TIMEOUT_S = 120
+# a hang guard: a launch takes about 50 s alone, and over twice that
+# while the test runner's other workers load every core
+WORKER_TIMEOUT_S = 300
 
 
 def start_workers(tmp: str, cases: dict, world: int, name: str = "job",

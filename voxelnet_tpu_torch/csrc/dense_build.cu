@@ -5,11 +5,11 @@
 // in torch by kernels/dense_build.py). Same contract: per frame the
 // linear cell ids are ascending, padding rows carry the id n_cells and
 // trail. Each block owns kRows consecutive cells of one frame: one warp
-// finds the block's slot range by a 32-way search of the sorted ids,
-// the block maps each of its cells to a slot (or none) in shared memory,
-// and then writes every 16-byte chunk of its cells exactly once: the
-// voxel's row where the cell is occupied, zeros elsewhere. No separate
-// zero fill, no read-modify-write.
+// finds the block's slot range by a 32-way search of the sorted ids
+// (sorted_ids.cuh), the block maps each of its cells to a slot (or none)
+// in shared memory, and then writes every 16-byte chunk of its cells
+// exactly once: the voxel's row where the cell is occupied, zeros
+// elsewhere. No separate zero fill, no read-modify-write.
 //
 // The kernel moves 16-byte chunks and never looks at the values, so one
 // kernel serves every element type; the launcher is a template over the
@@ -23,32 +23,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sorted_ids.cuh"
+
 namespace {
 
 constexpr int kRows = 128;     // cells per block
 constexpr int kThreads = 256;
-constexpr unsigned kFull = 0xffffffffu;
 
-// First index in ids[0, n) whose id is >= target (n if none), by one warp:
-// each round probes 32 evenly spaced positions and keeps the gap where the
-// ids cross the target.
-__device__ int warp_lower_bound(const int* __restrict__ ids, int n,
-                                int target) {
-  const int lane = threadIdx.x & 31;
-  int lo = 0, hi = n;  // the answer lies in [lo, hi]
-  while (hi - lo > 32) {
-    const int step = (hi - lo + 31) / 32;
-    const int probe = lo + lane * step;
-    const bool below = probe < hi && ids[probe] < target;
-    const int c = __popc(__ballot_sync(kFull, below));
-    const int new_lo = c > 0 ? lo + (c - 1) * step + 1 : lo;
-    hi = min(hi, lo + c * step);
-    lo = new_lo;
-  }
-  const int probe = lo + lane;
-  const bool below = probe < hi && ids[probe] < target;
-  return lo + __popc(__ballot_sync(kFull, below));
-}
+// the sorted ids of one frame's rows, as warp_lower_bound reads them
+struct RowIds {
+  const int* __restrict__ ids;
+  __device__ int operator()(int k) const { return ids[k]; }
+};
 
 __global__ void __launch_bounds__(kThreads)
 dense_build_kernel(const uint4* __restrict__ feat,  // (B, K, chunks)
@@ -64,7 +50,7 @@ dense_build_kernel(const uint4* __restrict__ feat,  // (B, K, chunks)
 
   const int warp = threadIdx.x >> 5;
   if (warp < 2) {
-    const int at = warp_lower_bound(fid, K, base + (warp ? rows : 0));
+    const int at = warp_lower_bound(RowIds{fid}, K, base + (warp ? rows : 0));
     if ((threadIdx.x & 31) == 0) range[warp] = at;
   }
   for (int r = threadIdx.x; r < kRows; r += kThreads) slot_of[r] = -1;

@@ -9,10 +9,16 @@
 // these kernels (kernels/sparse_conv.py). JAX scatters and needs no map;
 // the output-stationary sum looks its taps up in one.
 //
-// occupancy_kernel writes row k at the map cell of each live voxel, after
-// a memset of the map to -1; padding rows go to a spare cell past the grid,
-// and a live voxel outside the grid traps.
-// Live coords are unique within a frame, so no two live writes meet.
+// occupancy_kernel is a streaming build of the map, as dense_build.cu
+// builds the grid: it takes the voxelizers' order (per frame the live
+// rows' cell ids ascend strictly, padding rows trail) and writes every
+// cell exactly once, the row k where a live voxel sits and -1 elsewhere,
+// in one launch with no fill before it. A live voxel outside the grid, or
+// a live row out of that order, traps. It writes the 4-byte map (45 MB at
+// Car B=8) and reads the table once: device-memory bytes bound it. What
+// holds it back is each block's chain of dependent loads (the search,
+// then its rows) before its stores; 8192 cells a block halve the chains
+// that 4096 would take.
 //
 // sparse_conv_fwd_kernel is output-stationary, bit-equal to JAX's
 // sequence of f32 additions: for each 16-byte chunk of an output site,
@@ -57,6 +63,7 @@
 #include <stdint.h>
 
 #include "kernel_info.cuh"
+#include "sorted_ids.cuh"
 
 namespace {
 
@@ -74,6 +81,9 @@ constexpr int kCells = 3 * kCellsY * kCellsX;
 // registers, 3 blocks an SM, no spills (8: 97 registers, 2 blocks)
 constexpr int kTapBatch = 4;
 constexpr int kMaxDevices = 64;
+// map cells a block of the occupancy kernel owns: 32 KB of shared memory,
+// 7 blocks an SM
+constexpr int kOccCells = 8192;
 
 template <typename T>
 struct Chunk;
@@ -340,28 +350,90 @@ sparse_conv_fwd_kernel(const uint4* __restrict__ vals,  // (B, K, 27, chunks)
   }
 }
 
-// coords (B, K, 3) zyx, counts (B, K) -> occ (B * D * H * W + 1), already
-// -1: occ[b * n + (z * H + y) * W + x] = k for each live row, the spare
-// cell B * n for padding rows. A live row outside the grid traps the
-// kernel, so the call's next synchronisation raises, as the plain version
-// raises on it.
+// the linear cell id (z * H + y) * W + x of each row of one frame, n =
+// D * H * W for a padding row (count 0), as the map's search reads them.
+// The four loads do not wait on each other; a live row outside the grid
+// gets some id (the row check traps on it).
+struct TableIds {
+  const int* __restrict__ coords;  // (K, 3) zyx
+  const int* __restrict__ counts;  // (K,)
+  int H, W, n;
+  __device__ int operator()(int k) const {
+    const int c = counts[k];
+    const unsigned z = coords[3 * k], y = coords[3 * k + 1],
+                   x = coords[3 * k + 2];
+    return c > 0 ? (int)((z * H + y) * W + x) : n;
+  }
+};
+
+// The map's contract for row i = (b, k) of the (B, K) table: a live row
+// lies inside the grid, and a live row k + 1 follows a live row k at a
+// larger cell id (padding rows trail). Traps otherwise, so the call's next
+// synchronisation raises (the plain version raises ValueError).
+__device__ void check_row(const int* __restrict__ coords,
+                          const int* __restrict__ counts, long long i, int k,
+                          int K, int D, int H, int W) {
+  const bool live = counts[i] > 0;
+  const int z = coords[3 * i], y = coords[3 * i + 1], x = coords[3 * i + 2];
+  if (live && (z < 0 || z >= D || y < 0 || y >= H || x < 0 || x >= W))
+    __trap();
+  if (k + 1 < K && counts[i + 1] > 0) {
+    const long long at = ((long long)z * H + y) * W + x;
+    const long long next =
+        ((long long)coords[3 * i + 3] * H + coords[3 * i + 4]) * W +
+        coords[3 * i + 5];
+    if (!live || at >= next) __trap();
+  }
+}
+
+// coords (B, K, 3) zyx, counts (B, K) -> occ (B, D, H, W): the row k of
+// the live voxel at each cell, -1 elsewhere. Each block owns kOccCells
+// consecutive cells of frame blockIdx.y: warps 0-1 find the rows that land
+// there by a search of the frame's ascending cell ids (sorted_ids.cuh),
+// the other warps check an equal share of all B * K rows against the
+// contract, the block marks its rows in shared memory and stores every
+// cell once, 16 bytes a store where the frame's cells are a multiple of 4.
 __global__ void __launch_bounds__(kThreads)
 occupancy_kernel(const int* __restrict__ coords,
                  const int* __restrict__ counts, int* __restrict__ occ,
-                 int B, int K, int D, int H, int W) {
-  const long long n = (long long)D * H * W;
-  const long long total = (long long)B * K;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-       i < total; i += (long long)gridDim.x * kThreads) {
-    const long long b = i / K;
-    long long target = B * n;
-    if (counts[i] > 0) {
-      const int z = coords[3 * i], y = coords[3 * i + 1],
-                x = coords[3 * i + 2];
-      if (z < 0 || z >= D || y < 0 || y >= H || x < 0 || x >= W) __trap();
-      target = b * n + ((long long)z * H + y) * W + x;
-    }
-    occ[target] = (int)(i - b * K);
+                 int K, int D, int H, int W) {
+  __shared__ __align__(16) int row_of[kOccCells];
+  __shared__ int range[2];
+  const int n = D * H * W;
+  const int b = blockIdx.y;
+  const int base = blockIdx.x * kOccCells;
+  const int cells = min(kOccCells, n - base);
+  const TableIds id{coords + (size_t)b * K * 3, counts + (size_t)b * K, H, W,
+                    n};
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const int at = warp_lower_bound(id, K, base + (warp ? cells : 0));
+    if ((threadIdx.x & 31) == 0) range[warp] = at;
+  } else {
+    const long long total = (long long)gridDim.y * K;
+    const long long blocks = (long long)gridDim.x * gridDim.y;
+    const long long per = (total + blocks - 1) / blocks;
+    const long long first =
+        ((long long)blockIdx.y * gridDim.x + blockIdx.x) * per;
+    const long long last = min(first + per, total);
+    for (long long i = first + (int)threadIdx.x - 64; i < last;
+         i += kThreads - 64)
+      check_row(coords, counts, i, (int)(i % K), K, D, H, W);
+  }
+  for (int r = threadIdx.x; r < kOccCells; r += kThreads) row_of[r] = -1;
+  __syncthreads();
+  for (int s = range[0] + threadIdx.x; s < range[1]; s += kThreads) {
+    const int r = id(s) - base;  // in [0, cells) for ascending ids
+    if (r >= 0 && r < cells) row_of[r] = s;
+  }
+  __syncthreads();
+  int* dst = occ + (size_t)b * n + base;
+  if ((n & 3) == 0) {
+    const int4* src = reinterpret_cast<const int4*>(row_of);
+    for (int r = threadIdx.x; r < cells / 4; r += kThreads)
+      reinterpret_cast<int4*>(dst)[r] = src[r];
+  } else {
+    for (int r = threadIdx.x; r < cells; r += kThreads) dst[r] = row_of[r];
   }
 }
 
@@ -452,19 +524,14 @@ int launch_fwd(const void* vals, const void* occ, const void* bias, void* out,
 
 }  // namespace
 
-// coords (B, K, 3) int32, counts (B, K) int32 -> occ (B * D * H * W + 1)
-// int32: -1, then each live row's k at its cell
+// coords (B, K, 3) int32, counts (B, K) int32 -> occ (B, D, H, W) int32,
+// every cell written by one launch; D * H * W < 2**31, B < 65536.
 extern "C" int occupancy_map_launch(const void* coords, const void* counts,
                                     void* occ, int B, int K, int D, int H,
                                     int W, void* stream) {
-  const size_t cells = (size_t)B * D * H * W + 1;
-  cudaError_t err = cudaMemsetAsync(occ, 0xFF, cells * sizeof(int),
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  const long long want = ((long long)B * K + kThreads - 1) / kThreads;
-  const unsigned blocks = (unsigned)(want < (1 << 20) ? want : (1 << 20));
-  occupancy_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)coords, (const int*)counts, (int*)occ, B, K, D, H, W);
+  const dim3 grid((D * H * W + kOccCells - 1) / kOccCells, B);
+  occupancy_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)coords, (const int*)counts, (int*)occ, K, D, H, W);
   return (int)cudaGetLastError();
 }
 

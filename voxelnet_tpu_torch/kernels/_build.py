@@ -16,6 +16,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
@@ -113,23 +115,33 @@ def check(err: int, what: str) -> None:
 
 def on_cpu(t) -> bool:
     """A wrapper runs its kernel's plain version only for CPU tensors."""
-    return t.device.type == "cpu"
+    return t.is_cpu
 
 
-def require_shapes(what: str, want: dict) -> None:
-    """want: name -> (tensor, dtype, shape); raise on the first mismatch."""
-    for name, (t, dtype, shape) in want.items():
-        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+def require_shapes(what: str, *want) -> None:
+    """want: (name, tensor, dtype, shape) each; raise on the first
+    mismatch."""
+    for name, t, dtype, shape in want:
+        if t.dtype != dtype or t.shape != shape:
             raise ValueError(f"{what}: {name} must be {dtype} {tuple(shape)}, "
                              f"got {t.dtype} {tuple(t.shape)}")
 
 
-def require_cuda(what: str, *tensors) -> None:
-    """Raise unless every tensor is a contiguous CUDA tensor on one device."""
-    devices = {t.device for t in tensors}
-    if any(t.device.type != "cuda" for t in tensors) or len(devices) != 1:
-        raise ValueError(f"{what}: the kernel takes CUDA tensors on one "
-                         f"device, got {sorted(map(str, devices))}")
+def require_cuda(what: str, *tensors) -> int:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device
+    -> that device's index."""
+    index = tensors[0].get_device()
+    for t in tensors:
+        if not t.is_cuda or t.get_device() != index:
+            devices = sorted({str(t.device) for t in tensors})
+            raise ValueError(f"{what}: the kernel takes CUDA tensors on one "
+                             f"device, got {devices}")
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{what}: the kernel takes contiguous tensors")
+    return index
+
+
+def stream(index: int) -> int:
+    """The handle of the current CUDA stream of device `index`."""
+    return torch.cuda.current_stream(index).cuda_stream

@@ -50,24 +50,23 @@ def dense_build(feat: torch.Tensor, ids: torch.Tensor,
     multiple of 4."""
     if _build.on_cpu(feat):
         return dense_build_plain(feat, ids, n_cells)
-    _build.require_cuda("dense_build", feat, ids)
+    index = _build.require_cuda("dense_build", feat, ids)
     B, K, C = feat.shape
     if feat.dtype not in _LAUNCHERS:
         raise ValueError(f"dense_build: feat must be torch.bfloat16 or "
                          f"torch.float32, got {feat.dtype}")
     fn, per_chunk = _LAUNCHERS[feat.dtype]
-    _build.require_shapes("dense_build", {
-        "feat": (feat, feat.dtype, (B, K, C)),
-        "ids": (ids, torch.int32, (B, K))})
+    _build.require_shapes("dense_build",
+                          ("feat", feat, feat.dtype, (B, K, C)),
+                          ("ids", ids, torch.int32, (B, K)))
     if C % per_chunk or not 0 < n_cells < 2 ** 31 or K < 1:
         raise ValueError(f"dense_build: need C % {per_chunk} == 0, K >= 1 "
                          f"and 0 < n_cells < 2**31 (C={C}, K={K}, "
                          f"n={n_cells})")
     out = torch.empty((B, n_cells, C), dtype=feat.dtype, device=feat.device)
     lib = _build.load("dense_build", _ARGTYPES)
-    stream = torch.cuda.current_stream(feat.device).cuda_stream
     err = getattr(lib, fn)(feat.data_ptr(), ids.data_ptr(), out.data_ptr(),
-                           B, K, n_cells, C, stream)
+                           B, K, n_cells, C, _build.stream(index))
     _build.check(err, "dense_build")
     global launches
     launches += 1

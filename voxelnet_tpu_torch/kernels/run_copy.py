@@ -51,12 +51,12 @@ def run_copy(planar: torch.Tensor, run_start: torch.Tensor,
     """
     if _build.on_cpu(planar):
         return run_copy_plain(planar, run_start, points_per_voxel)
-    _build.require_cuda("run_copy", planar, run_start)
+    index = _build.require_cuda("run_copy", planar, run_start)
     B, _, N = planar.shape
     K = run_start.shape[1]
-    _build.require_shapes("run_copy", {
-        "planar": (planar, torch.float32, (B, 4, N)),
-        "run_start": (run_start, torch.int32, (B, K))})
+    _build.require_shapes("run_copy",
+                          ("planar", planar, torch.float32, (B, 4, N)),
+                          ("run_start", run_start, torch.int32, (B, K)))
     T = points_per_voxel
     if T < 1 or N + T >= 2 ** 31 or K * T >= 2 ** 31 or B > 65535:
         raise ValueError(f"run_copy: need points_per_voxel >= 1, "
@@ -64,9 +64,9 @@ def run_copy(planar: torch.Tensor, run_start: torch.Tensor,
                          f"(B={B}, N={N}, K={K}, T={T})")
     out = torch.empty((B, K, T, 4), dtype=torch.float32, device=planar.device)
     lib = _build.load("run_copy", _ARGTYPES)
-    stream = torch.cuda.current_stream(planar.device).cuda_stream
     err = lib.run_copy_launch(planar.data_ptr(), run_start.data_ptr(),
-                              out.data_ptr(), B, N, K, T, stream)
+                              out.data_ptr(), B, N, K, T,
+                              _build.stream(index))
     _build.check(err, "run_copy")
     global launches
     launches += 1

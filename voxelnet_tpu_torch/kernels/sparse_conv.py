@@ -11,11 +11,13 @@ o = (kd * 3 + ky) * 3 + kx, comes from a torch matmul before this
 
 `occupancy_map` (the lookup the output-stationary sum needs; JAX scatters
 instead) launches `csrc/sparse_conv.cu`'s occupancy kernel for CUDA tensors
-and runs `occupancy_map_plain` for CPU tensors. `sparse_conv` launches its
-output-stationary kernel for CUDA tensors and runs `sparse_conv_plain`,
-JAX's algorithm (an f32 zero buffer, 27 `index_add_` in offset order, +
-bias, a cast), for CPU tensors; the kernel is bit-equal to it, and both
-take an optional ReLU after the cast (`relu=True`). `sparse_conv_grad`
+and runs `occupancy_map_plain` for CPU tensors; both take the voxelizers'
+order of the table's live rows (strictly ascending cell ids) and refuse
+another. `sparse_conv` launches its output-stationary kernel for CUDA
+tensors and runs `sparse_conv_plain`, JAX's algorithm (an f32 zero
+buffer, 27 `index_add_` in offset order, + bias, a cast), for CPU tensors;
+the kernel is bit-equal to it, and both take an optional ReLU after the
+cast (`relu=True`). `sparse_conv_grad`
 launches the gather kernel or runs `sparse_conv_grad_plain`. There is no
 fallback from one to the other. `sparse_conv_autograd` puts them together
 with the bias gradient.
@@ -63,18 +65,30 @@ def occupancy_map_plain(coords: torch.Tensor, counts: torch.Tensor,
     of the voxel at each site, -1 where the site is empty. Padding rows
     (count 0) carry arbitrary coords and write only a spare cell past the
     grid, which is cut off. Raises ValueError on a live row outside the
-    grid."""
+    grid, then on a frame out of the voxelizers' order that the kernel
+    needs: live rows first, at cell ids (z * H + y) * W + x that ascend
+    strictly (a duplicate, a swap or a live row after a padding row
+    raises)."""
     B, K = counts.shape
     D, H, W = grid_dzyx
     n = D * H * W
     c = coords.long()
+    live = counts > 0
     outside = ((c < 0) | (c >= c.new_tensor(grid_dzyx))).any(-1)
-    if bool((outside & (counts > 0)).any()):
+    if bool((outside & live).any()):
         raise ValueError(f"occupancy_map: a live voxel lies outside the grid "
                          f"{tuple(grid_dzyx)}")
     lin = (c[..., 0] * H + c[..., 1]) * W + c[..., 2]
+    # the largest live id before each row: a live id must exceed it
+    before = torch.where(live, lin, -1).cummax(1).values
+    before = torch.cat([before.new_full((B, 1), -1), before[:, :-1]], 1)
+    if bool((live & (lin <= before)).any()
+            or (live[:, 1:] & ~live[:, :-1]).any()):
+        raise ValueError("occupancy_map: the live voxels of a frame must "
+                         "lead its padding rows, at strictly ascending cell "
+                         "ids (z * H + y) * W + x")
     base = torch.arange(B, device=counts.device)[:, None] * n
-    target = torch.where(counts > 0, base + lin, B * n)
+    target = torch.where(live, base + lin, B * n)
     occ = torch.full((B * n + 1,), -1, dtype=torch.int32,
                      device=counts.device)
     rows = torch.arange(K, dtype=torch.int32, device=counts.device)
@@ -82,34 +96,46 @@ def occupancy_map_plain(coords: torch.Tensor, counts: torch.Tensor,
     return occ[: B * n].view(B, D, H, W)
 
 
+# the occupancy kernel's launcher, looked up once
+_occupancy_launch = None
+
+
+def _bind_occupancy():
+    global _occupancy_launch
+    _occupancy_launch = _build.load("sparse_conv",
+                                    _ARGTYPES).occupancy_map_launch
+    return _occupancy_launch
+
+
 def occupancy_map(coords: torch.Tensor, counts: torch.Tensor,
                   grid_dzyx: tuple[int, int, int]) -> torch.Tensor:
     """`occupancy_map_plain`'s map; for CUDA tensors (int32 coords and
-    counts) one memset to -1 and one kernel that writes each live row's k
-    at its cell. A live row outside the grid traps the kernel, which the
-    next synchronisation raises as a CUDA error (the plain version raises
-    ValueError)."""
+    counts) one kernel launch that writes every cell of the (B, D, H, W)
+    map once. It takes the voxelizers' order: per frame the live rows'
+    cell ids ascend strictly and padding rows trail. A live row outside
+    the grid or out of that order (a live row after a padding row too)
+    traps the kernel, which the next synchronisation raises as a CUDA
+    error (the plain version raises ValueError on the same tables)."""
     if _build.on_cpu(coords):
         return occupancy_map_plain(coords, counts, grid_dzyx)
-    _build.require_cuda("occupancy_map", coords, counts)
+    index = _build.require_cuda("occupancy_map", coords, counts)
     B, K = counts.shape
     D, H, W = grid_dzyx
-    _build.require_shapes("occupancy_map", {
-        "coords": (coords, torch.int32, (B, K, 3)),
-        "counts": (counts, torch.int32, (B, K))})
-    n = D * H * W
-    if K < 1 or B < 1 or n < 1:
-        raise ValueError(f"occupancy_map: need B, K >= 1 and a grid "
-                         f"(B={B}, K={K}, grid={grid_dzyx})")
-    occ = torch.empty((B * n + 1,), dtype=torch.int32, device=counts.device)
-    lib = _build.load("sparse_conv", _ARGTYPES)
-    stream = torch.cuda.current_stream(counts.device).cuda_stream
-    err = lib.occupancy_map_launch(coords.data_ptr(), counts.data_ptr(),
-                                   occ.data_ptr(), B, K, D, H, W, stream)
+    _build.require_shapes("occupancy_map",
+                          ("coords", coords, torch.int32, (B, K, 3)),
+                          ("counts", counts, torch.int32, (B, K)))
+    if not (0 < B < 65536 and K > 0 and 0 < D * H * W < 2 ** 31):
+        raise ValueError(f"occupancy_map: need 1 <= B < 65536, K >= 1 and "
+                         f"a grid of 1 to 2**31 - 1 cells (B={B}, K={K}, "
+                         f"grid={grid_dzyx})")
+    occ = counts.new_empty((B, D, H, W))
+    err = (_occupancy_launch or _bind_occupancy())(
+        coords.data_ptr(), counts.data_ptr(), occ.data_ptr(), B, K, D, H, W,
+        _build.stream(index))
     _build.check(err, "occupancy_map")
     global occupancy_launches
     occupancy_launches += 1
-    return occ[: B * n].view(B, D, H, W)
+    return occ
 
 
 def tap_sites(coords: torch.Tensor, counts: torch.Tensor, stride_d: int,
@@ -180,7 +206,8 @@ def sparse_conv(vals: torch.Tensor, coords: torch.Tensor,
         return sparse_conv_plain(vals, coords, counts, bias,
                                  tuple(occ.shape[1:]), stride_d, pad_d,
                                  w_window, relu)
-    _build.require_cuda("sparse_conv", vals, coords, counts, occ, bias)
+    index = _build.require_cuda("sparse_conv", vals, coords, counts, occ,
+                                bias)
     if vals.dtype not in _FWD_LAUNCHERS:
         raise ValueError(f"sparse_conv: vals must be torch.bfloat16 or "
                          f"torch.float32, got {vals.dtype}")
@@ -188,12 +215,12 @@ def sparse_conv(vals: torch.Tensor, coords: torch.Tensor,
     D, H, W = occ.shape[1:]
     x0, wloc = _window(w_window, W)
     do = depth_out(D, stride_d, pad_d)
-    _build.require_shapes("sparse_conv", {
-        "vals": (vals, vals.dtype, (B, K, 27, cout)),
-        "coords": (coords, torch.int32, (B, K, 3)),
-        "counts": (counts, torch.int32, (B, K)),
-        "occ": (occ, torch.int32, (B, D, H, W)),
-        "bias": (bias, torch.float32, (cout,))})
+    _build.require_shapes("sparse_conv",
+                          ("vals", vals, vals.dtype, (B, K, 27, cout)),
+                          ("coords", coords, torch.int32, (B, K, 3)),
+                          ("counts", counts, torch.int32, (B, K)),
+                          ("occ", occ, torch.int32, (B, D, H, W)),
+                          ("bias", bias, torch.float32, (cout,)))
     chunks = cout * vals.element_size() // 16
     tiles = B * do * -(-H // _TILE[0]) * -(-wloc // _TILE[1])
     if (cout * vals.element_size() % 16 or _THREADS % chunks or K < 1
@@ -208,11 +235,10 @@ def sparse_conv(vals: torch.Tensor, coords: torch.Tensor,
     # the kernel's tile counter, zeroed by its launcher
     counter = torch.empty((1,), dtype=torch.int32, device=vals.device)
     lib = _build.load("sparse_conv", _ARGTYPES)
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
     err = getattr(lib, _FWD_LAUNCHERS[vals.dtype])(
         vals.data_ptr(), occ.data_ptr(), bias.data_ptr(), out.data_ptr(),
         counter.data_ptr(), B, K, D, H, W, do, stride_d, pad_d, x0, wloc,
-        cout, int(relu), stream)
+        cout, int(relu), _build.stream(index))
     _build.check(err, "sparse_conv")
     global launches
     launches += 1
@@ -247,12 +273,12 @@ def sparse_conv_grad(dout: torch.Tensor, coords: torch.Tensor,
     if _build.on_cpu(dout):
         return sparse_conv_grad_plain(dout, coords, counts, stride_d, pad_d,
                                       x0)
-    _build.require_cuda("sparse_conv_grad", dout, coords, counts)
+    index = _build.require_cuda("sparse_conv_grad", dout, coords, counts)
     B, do, H, wloc, cout = dout.shape
     K = counts.shape[1]
-    _build.require_shapes("sparse_conv_grad", {
-        "coords": (coords, torch.int32, (B, K, 3)),
-        "counts": (counts, torch.int32, (B, K))})
+    _build.require_shapes("sparse_conv_grad",
+                          ("coords", coords, torch.int32, (B, K, 3)),
+                          ("counts", counts, torch.int32, (B, K)))
     row_bytes = cout * dout.element_size()
     if row_bytes % 16 or K < 1:
         raise ValueError(
@@ -261,11 +287,10 @@ def sparse_conv_grad(dout: torch.Tensor, coords: torch.Tensor,
     dvals = torch.empty((B, K, 27, cout), dtype=dout.dtype,
                         device=dout.device)
     lib = _build.load("sparse_conv", _ARGTYPES)
-    stream = torch.cuda.current_stream(dout.device).cuda_stream
     err = lib.sparse_conv_grad_launch(
         dout.data_ptr(), coords.data_ptr(), counts.data_ptr(),
         dvals.data_ptr(), B, K, do, H, wloc, stride_d, pad_d, x0,
-        row_bytes // 16, stream)
+        row_bytes // 16, _build.stream(index))
     _build.check(err, "sparse_conv_grad")
     global grad_launches
     grad_launches += 1

@@ -87,27 +87,27 @@ def vfe_fused(planar: torch.Tensor, run_start: torch.Tensor,
     args = (planar, run_start, num_voxels, counts, w1, a1, w2, a2)
     if _build.on_cpu(planar):
         return vfe_fused_plain(*args, points_per_voxel)
-    _build.require_cuda("vfe_fused", *args)
+    index = _build.require_cuda("vfe_fused", *args)
     B, _, N = planar.shape
     K = run_start.shape[1]
-    want = {"planar": (planar, torch.float32, (B, 4, N)),
-            "run_start": (run_start, torch.int32, (B, K)),
-            "num_voxels": (num_voxels, torch.int32, (B,)),
-            "counts": (counts, torch.int32, (B, K)),
-            "w1": (w1, torch.float32, (16, 8)),
-            "a1": (a1, torch.float32, (16, 3)),
-            "w2": (w2, torch.float32, (64, 32)),
-            "a2": (a2, torch.float32, (64, 3))}
-    _build.require_shapes("vfe_fused", want)
+    _build.require_shapes("vfe_fused",
+                          ("planar", planar, torch.float32, (B, 4, N)),
+                          ("run_start", run_start, torch.int32, (B, K)),
+                          ("num_voxels", num_voxels, torch.int32, (B,)),
+                          ("counts", counts, torch.int32, (B, K)),
+                          ("w1", w1, torch.float32, (16, 8)),
+                          ("a1", a1, torch.float32, (16, 3)),
+                          ("w2", w2, torch.float32, (64, 32)),
+                          ("a2", a2, torch.float32, (64, 3)))
     if not 0 < points_per_voxel <= MAX_POINTS_PER_VOXEL or N >= 2 ** 31:
         raise ValueError(f"vfe_fused: points_per_voxel {points_per_voxel} "
                          f"must be in [1, {MAX_POINTS_PER_VOXEL}] and "
                          f"N={N} < 2**31")
     out = torch.empty((B, K, 128), dtype=torch.bfloat16, device=planar.device)
     lib = _build.load("vfe_fused", _ARGTYPES)
-    stream = torch.cuda.current_stream(planar.device).cuda_stream
     err = lib.vfe_fused_launch(*(t.data_ptr() for t in args), out.data_ptr(),
-                               B, N, K, points_per_voxel, stream)
+                               B, N, K, points_per_voxel,
+                               _build.stream(index))
     _build.check(err, "vfe_fused")
     global launches
     launches += 1
