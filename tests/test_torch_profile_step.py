@@ -290,3 +290,43 @@ def test_main_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="sees no CUDA"):
         profile_step.main(["--stage", "infer"])
+
+
+def annotation(name, ts, dur, cat="user_annotation"):
+    return {"ph": "X", "cat": cat, "name": name, "pid": PID, "tid": TID,
+            "ts": ts, "dur": dur}
+
+
+def test_idle_gaps_go_to_the_innermost_program_range(tmp_path):
+    """Device ops at 0-10, 30-40, 100-110 and 150-160 us under the
+    program's ranges voxelnet.infer (0-120) and voxelnet.nms (35-90) on
+    the host: the gap 10-30 goes to infer, 40-100 (midpoint 70) to nms,
+    110-150 (midpoint 130) outside the program. The primer's spin kernel
+    before them is left out, and so is the ranges' device-side copy."""
+    base = 1406803215346.654
+    events = [annotation("voxelnet.infer", base, 120.0),
+              annotation("voxelnet.nms", base + 35, 55.0),
+              annotation("voxelnet.infer", base + 10, 150.0,
+                         "gpu_user_annotation"),
+              device("kernel", "spin_kernel(long)", base - 50, 10.0, 9)]
+    for i, t in enumerate((0.0, 30.0, 100.0, 150.0)):
+        name = "vfe_fused_kernel(int)" if t == 100.0 else f"k{i}"
+        events.append(device("kernel", name, base + t, 10.0, i))
+    s = profile_step.parse_trace(events, iters=1)
+    assert s.kernels == 4 and s.total_ms == pytest.approx(0.040)
+    assert s.port_events == {"vfe_fused": 1}
+    assert [g.range for g in s.idle] == ["voxelnet.nms",
+                                         profile_step.OUTSIDE,
+                                         "voxelnet.infer"]
+    assert [g.ms for g in s.idle] == pytest.approx([0.060, 0.040, 0.020])
+    assert [g.gaps for g in s.idle] == [1, 1, 1]
+    halved = profile_step.parse_trace(events, iters=2)
+    assert [g.ms for g in halved.idle] == pytest.approx([0.030, 0.020,
+                                                         0.010])
+    path = tmp_path / "summary.md"
+    profile_step.write_summary(str(path), "# head\n", [
+        profile_step.Section("inference (batch 8)", 1.0, s)], 5, True)
+    text = path.read_text()
+    assert "**Device idle 0.120 ms/iter**" in text
+    assert "| voxelnet.nms | 0.0600 | 50.0% | 1 |" in text
+    assert f"| {profile_step.OUTSIDE} | 0.0400 | 33.3% | 1 |" in text

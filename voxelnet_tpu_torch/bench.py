@@ -154,8 +154,10 @@ def load_frames(max_points: int, batch: int, spec=None):
 class Stage(NamedTuple):
     """fn(*inputs): the stage's result (the vfe stage's voxelwise
     features, the dense grid, the BEV map, Detections, the train step's
-    metrics, the target maps); chained(*inputs, salt) -> 0-d tensor: the
-    same work on the first input plus salt, its result summed times 0;
+    metrics, the target maps; the infer and train stages take a `marks`
+    list after the inputs, which records their spans);
+    chained(*inputs, salt) -> 0-d tensor: the same work on the first
+    input plus salt, its result summed times 0;
     prep(points, num_points): one host batch -> the host arrays that fn
     and chained take."""
 
@@ -234,8 +236,8 @@ def make_stage_fn(stage: str, config: VoxelNetConfig,
         infer = make_inference_fn(config, device)
         model = model.to(device)
 
-        def fn(points, num_points):
-            return infer(model, points, num_points)
+        def fn(points, num_points, marks=None):
+            return infer(model, points, num_points, marks)
 
         def chained(points, num_points, salt):
             return infer(model, points + salt, num_points).scores.sum() * 0.0
@@ -304,16 +306,18 @@ def make_stage_fn(stage: str, config: VoxelNetConfig,
                 return (np.stack(feats), np.stack(crds),
                         np.stack(cnts).astype(np.int32))
 
-            def fn(features, coords, counts):
+            def fn(features, coords, counts, marks=None):
                 return step(state, {"voxel_features": features,
                                     "voxel_coords": coords,
-                                    "voxel_counts": counts, **extra})[1]
+                                    "voxel_counts": counts, **extra},
+                            marks)[1]
         else:
             prep = _points_only
 
-            def fn(points, num_points):
+            def fn(points, num_points, marks=None):
                 return step(state, {"points": points,
-                                    "num_points": num_points, **extra})[1]
+                                    "num_points": num_points, **extra},
+                            marks)[1]
 
         def chained(first, *rest_and_salt):
             *rest, salt = rest_and_salt

@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from voxelnet_tpu_torch import tracing
 from voxelnet_tpu_torch.kernels import _build
 
 # (kd, ky, kx) in the order of the offset axis of `vals`
@@ -75,15 +76,16 @@ def occupancy_map_plain(coords: torch.Tensor, counts: torch.Tensor,
     c = coords.long()
     live = counts > 0
     outside = ((c < 0) | (c >= c.new_tensor(grid_dzyx))).any(-1)
-    if bool((outside & live).any()):
+    if tracing.wait(tracing.current, (outside & live).any()):
         raise ValueError(f"occupancy_map: a live voxel lies outside the grid "
                          f"{tuple(grid_dzyx)}")
     lin = (c[..., 0] * H + c[..., 1]) * W + c[..., 2]
     # the largest live id before each row: a live id must exceed it
     before = torch.where(live, lin, -1).cummax(1).values
     before = torch.cat([before.new_full((B, 1), -1), before[:, :-1]], 1)
-    if bool((live & (lin <= before)).any()
-            or (live[:, 1:] & ~live[:, :-1]).any()):
+    if (tracing.wait(tracing.current, (live & (lin <= before)).any())
+            or tracing.wait(tracing.current,
+                            (live[:, 1:] & ~live[:, :-1]).any())):
         raise ValueError("occupancy_map: the live voxels of a frame must "
                          "lead its padding rows, at strictly ascending cell "
                          "ids (z * H + y) * W + x")

@@ -44,6 +44,7 @@ import threading
 import torch
 from torch import nn
 
+from voxelnet_tpu_torch import tracing
 from voxelnet_tpu_torch.parallel import distributed
 
 MOMENTUM = 0.9    # flax convention: the weight of the old running value
@@ -73,7 +74,20 @@ def flax_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     counted in the statistics), or None for all rows. Batch statistics
     summed over `group` (default the world) and a running-stat update when
     `bn.training`, running stats otherwise. Returns float32 (f64 for
-    an f64 x)."""
+    an f64 x). In train mode inside a traced call (tracing.py): a `bn`
+    span, and a `bn.backward` span over its backward."""
+    call = tracing.current
+    if call is None or not bn.training:
+        return _batch_norm(bn, x, channel_dim, mask, group)
+    with call.span("bn"):
+        y = _batch_norm(bn, x, channel_dim, mask, group)
+    call.backward_span("bn.backward", y, x)
+    return y
+
+
+def _batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+                channel_dim: int, mask: torch.Tensor | None,
+                group: distributed.Group | None) -> torch.Tensor:
     dim = channel_dim % x.dim()
     axes = [d for d in range(x.dim()) if d != dim]
     shape = [1] * x.dim()

@@ -25,7 +25,6 @@ from __future__ import annotations
 import contextlib
 import copy
 import itertools
-import time
 import weakref
 from typing import NamedTuple
 
@@ -33,6 +32,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from voxelnet_tpu_torch import tracing
 from voxelnet_tpu_torch.config import (VoxelNetConfig, middle_path,
                                        resolve_plan)
 from voxelnet_tpu_torch.kernels.sparse_conv import occupancy_map
@@ -49,6 +49,7 @@ from voxelnet_tpu_torch.ops.voxelize import (VoxelGridSpec, prepare,
                                              voxelize_table)
 from voxelnet_tpu_torch.parallel.mesh import ProcessMesh, process_mesh
 from voxelnet_tpu_torch.parallel.spatial import slab
+from voxelnet_tpu_torch.tracing import mark, stage
 
 STAGES = ("prepare", "vfe", "dense", "middle", "rpn", "decode", "nms")
 
@@ -202,19 +203,6 @@ def prepare_for_inference(model: VoxelNet, fold_bn: bool,
     return net
 
 
-def mark(marks: list | None, stage: str, device: torch.device) -> None:
-    """Append (stage, CUDA event recorded now) to `marks` on a CUDA
-    device, (stage, host time) elsewhere; nothing when marks is None."""
-    if marks is None:
-        return
-    if device.type == "cuda":
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((stage, ev))
-    else:
-        marks.append((stage, time.perf_counter()))
-
-
 def _versions(model: nn.Module) -> tuple[int, ...]:
     return tuple(t._version for t in itertools.chain(model.parameters(),
                                                      model.buffers()))
@@ -229,7 +217,8 @@ def make_maps_fn(config: VoxelNetConfig, device: torch.device | str = "cuda"):
     The model's weights are folded and cast at the first call with it and
     again only after a parameter or buffer changes in place. `marks`: a
     list that receives (stage, CUDA event or host time) after each stage
-    of STAGES up to 'rpn'. With a model axis in `config.system`, every
+    of STAGES up to 'rpn'; passing one also records the call's spans
+    (tracing.py). With a model axis in `config.system`, every
     process of a model group calls fn on the same points and each returns
     the maps of its W slab.
     """
@@ -263,42 +252,38 @@ def make_maps_fn(config: VoxelNetConfig, device: torch.device | str = "cuda"):
         return cache["net"]
 
     def fn(model: VoxelNet, points, num_points, marks=None):
-        with torch.no_grad():
-            net = prepared(model)
-        with torch.inference_mode():
-            return run(net, points, num_points, marks)
+        with tracing.call("infer", marks, device):
+            with torch.no_grad():
+                net = prepared(model)
+            with torch.inference_mode():
+                return run(net, points, num_points, marks)
 
     def run(net: VoxelNet, points, num_points, marks):
         points = torch.as_tensor(points, dtype=torch.float32, device=device)
         num_points = torch.as_tensor(num_points, dtype=torch.int32,
                                      device=device)
         mark(marks, "start", device)
-        if table_vfe:
-            vox = voxelize_table(points, num_points, spec, max_voxels)
-            mark(marks, "prepare", device)
-            voxelwise = net.feature_net.table(vox.features, vox.counts,
-                                              dtype)
-            coords, counts = vox.coords, vox.counts
-        else:
-            prep = prepare(points, num_points, spec, max_voxels)
-            mark(marks, "prepare", device)
-            voxelwise = net.feature_net(prep)
-            coords, counts = prep.coords, prep.counts
-        mark(marks, "vfe", device)
-        if plan.middle == "sparse1":
-            occ = window_occupancy(coords, counts, obj.grid_size, window)
-            mark(marks, "dense", device)
-            bev = net.middle.from_table(voxelwise.to(dtype), coords, counts,
-                                        occ, mesh, window)
-        else:
-            dense = scatter_to_dense_streamed(voxelwise, coords, counts,
-                                              obj.grid_size, window)
-            mark(marks, "dense", device)
-            bev = net.middle(dense.to(dtype), mesh)
-        mark(marks, "middle", device)
-        maps = net.rpn(bev, mesh, *columns)
-        mark(marks, "rpn", device)
-        return maps
+        with stage(marks, "prepare"):
+            vox = (voxelize_table if table_vfe else prepare)(
+                points, num_points, spec, max_voxels)
+        with stage(marks, "vfe"):
+            voxelwise = (net.feature_net.table(vox.features, vox.counts,
+                                               dtype)
+                         if table_vfe else net.feature_net(vox))
+        coords, counts = vox.coords, vox.counts
+        sparse1 = plan.middle == "sparse1"
+        with stage(marks, "dense"):
+            if sparse1:
+                occ = window_occupancy(coords, counts, obj.grid_size, window)
+            else:
+                dense = scatter_to_dense_streamed(voxelwise, coords, counts,
+                                                  obj.grid_size, window)
+        with stage(marks, "middle"):
+            bev = (net.middle.from_table(voxelwise.to(dtype), coords, counts,
+                                         occ, mesh, window) if sparse1
+                   else net.middle(dense.to(dtype), mesh))
+        with stage(marks, "rpn"):
+            return net.rpn(bev, mesh, *columns)
 
     return fn
 
@@ -310,7 +295,8 @@ def make_inference_fn(config: VoxelNetConfig,
     the box decode and NMS.
 
     `marks`: a list that receives (stage, CUDA event or host time) after
-    each stage of STAGES, for per-stage timing. With a model axis in
+    each stage of STAGES, for per-stage timing; passing one also records
+    the call's spans and counters (tracing.py). With a model axis in
     `config.system`, every process of a model group calls fn on the same
     points; all return the same detections.
     """
@@ -320,20 +306,22 @@ def make_inference_fn(config: VoxelNetConfig,
     obj, rpn_cfg = config.object, config.rpn
 
     def fn(model: VoxelNet, points, num_points, marks=None) -> Detections:
-        cls_logits, reg = maps_fn(model, points, num_points, marks)
-        with torch.inference_mode():
-            b = cls_logits.shape[0]
-            probs = torch.sigmoid(cls_logits).reshape(b, -1)
-            boxes = box_coding.decode_deltas(
-                reg.reshape(b, -1, 7), anchors, obj.anchor_h,
-                yaw_mode=config.train.yaw_encoding)
-            mark(marks, "decode", device)
-            res = nms.nms_bev(boxes, probs, score_thresh=rpn_cfg.score_thres,
-                              iou_thresh=rpn_cfg.nms_thres,
-                              pre_topk=rpn_cfg.nms_pre_topk,
-                              post_topk=rpn_cfg.nms_post_topk,
-                              mode=rpn_cfg.nms_mode)
-            mark(marks, "nms", device)
+        with tracing.call("infer", marks, device):
+            cls_logits, reg = maps_fn(model, points, num_points, marks)
+            with torch.inference_mode():
+                b = cls_logits.shape[0]
+                with stage(marks, "decode"):
+                    probs = torch.sigmoid(cls_logits).reshape(b, -1)
+                    boxes = box_coding.decode_deltas(
+                        reg.reshape(b, -1, 7), anchors, obj.anchor_h,
+                        yaw_mode=config.train.yaw_encoding)
+                with stage(marks, "nms"):
+                    res = nms.nms_bev(boxes, probs,
+                                      score_thresh=rpn_cfg.score_thres,
+                                      iou_thresh=rpn_cfg.nms_thres,
+                                      pre_topk=rpn_cfg.nms_pre_topk,
+                                      post_topk=rpn_cfg.nms_post_topk,
+                                      mode=rpn_cfg.nms_mode)
         return Detections(res.boxes, res.scores, res.valid)
 
     return fn

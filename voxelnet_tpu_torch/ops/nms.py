@@ -7,6 +7,7 @@ from typing import NamedTuple
 
 import torch
 
+from voxelnet_tpu_torch import tracing
 from voxelnet_tpu_torch.ops import iou as iou_ops
 
 
@@ -24,7 +25,10 @@ def greedy_suppress(iou_mat: torch.Tensor, order_valid: torch.Tensor,
     Iterates keep <- valid & no higher-ranked kept candidate overlaps me,
     from keep = valid, to its fixpoint, which is the greedy solution and is
     reached within the depth of the longest suppression chain. A frame that
-    has converged is a fixpoint, so the batch iterates together.
+    has converged is a fixpoint, so the batch iterates together. Each
+    iteration's test waits for the device; inside a traced call
+    (tracing.py) the waits count in `host.wait_ns` and the iterations in
+    `nms.iters`.
     """
     k = iou_mat.shape[-1]
     rank = torch.arange(k, device=iou_mat.device)
@@ -32,10 +36,13 @@ def greedy_suppress(iou_mat: torch.Tensor, order_valid: torch.Tensor,
     keep = order_valid
     prev = torch.zeros_like(keep)
     it = 0
-    while it < k and bool((keep != prev).any()):
+    call = tracing.current
+    while it < k and tracing.wait(call, (keep != prev).any()):
         suppressed = (over & keep[..., :, None]).any(dim=-2)
         keep, prev = order_valid & ~suppressed, keep
         it += 1
+    if call is not None:
+        call.add("nms.iters", it)
     return keep
 
 
@@ -62,16 +69,25 @@ def nms_bev(boxes3d: torch.Tensor, scores: torch.Tensor, *,
     cand = torch.gather(boxes3d.to(torch.float32), 1,
                         top_idx[..., None].expand(*top_idx.shape, 7))
     cand_valid = top_scores >= score_thresh
+    call = tracing.current
+    if call is not None:
+        # pairs whose IoU is computed, and those of two candidates over
+        # the score gate (a count on the device)
+        call.add("nms.iou_pairs", cand_valid.numel() * k)
+        live = cand_valid.sum(-1)
+        call.add("nms.iou_pairs_live", (live * live).sum())
 
     bev = cand[..., [0, 1, 4, 5, 6]]
-    if mode == "rotated":
-        mat = iou_ops.rotated_iou(bev, bev)
-    elif mode == "standup":
-        standup = iou_ops.corners_to_standup(iou_ops.bev_corners(bev))
-        mat = iou_ops.standup_iou(standup, standup)
-    else:
-        raise ValueError(f"unknown NMS mode {mode!r}")
-    keep = greedy_suppress(mat, cand_valid, iou_thresh)
+    with tracing.span("nms.iou"):
+        if mode == "rotated":
+            mat = iou_ops.rotated_iou(bev, bev)
+        elif mode == "standup":
+            standup = iou_ops.corners_to_standup(iou_ops.bev_corners(bev))
+            mat = iou_ops.standup_iou(standup, standup)
+        else:
+            raise ValueError(f"unknown NMS mode {mode!r}")
+    with tracing.span("nms.greedy"):
+        keep = greedy_suppress(mat, cand_valid, iou_thresh)
 
     # compact the kept candidates to the front in score order; slot
     # post_topk is a drop slot, cut off below

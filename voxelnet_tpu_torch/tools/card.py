@@ -1,5 +1,6 @@
 """The card's identity, as every measurement of the port records it, and
-the timers of `chip_smoke.py` and `tools/occupancy_ab.py`."""
+the timers of `chip_smoke.py` and `tools/occupancy_ab.py`, whose primer
+`tools/profile_step.py` shares."""
 
 from __future__ import annotations
 
@@ -76,6 +77,15 @@ def host_us(fn, reps: int = 50, windows: int = 5) -> float:
     return statistics.median(times)
 
 
+def prime() -> None:
+    """The primer above, first inside a profile's window: PROFILE_LEAD_S
+    of idle, PRIMER_KERNELS spin kernels, a synchronisation."""
+    time.sleep(PROFILE_LEAD_S)
+    for _ in range(PRIMER_KERNELS):
+        torch.cuda._sleep(10_000)
+    torch.cuda.synchronize()
+
+
 def profiled(fn, reps: int) -> list:
     """torch.profiler (CPU and CUDA) over `reps` back-to-back fn() calls,
     after the primer above inside the window -> the device ops of the
@@ -84,10 +94,7 @@ def profiled(fn, reps: int) -> list:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as p:
-        time.sleep(PROFILE_LEAD_S)
-        for _ in range(PRIMER_KERNELS):
-            torch.cuda._sleep(10_000)
-        torch.cuda.synchronize()
+        prime()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()

@@ -16,7 +16,14 @@ The work traced is the bench's (voxelnet_tpu_torch/bench.py): its frames
 without --host-voxelize, one GT box a frame) and its model
 (`build_model(config, seed=0)`). Each graph runs once outside the profile,
 then `--iters` times under `torch.profiler` (CPU and CUDA activities,
-input shapes recorded), closed by one `torch.cuda.synchronize()`.
+input shapes recorded), closed by one `torch.cuda.synchronize()`. On the
+card the window opens with `tools/card.py`'s primer (idle, then spin
+kernels, left out of the tables), and is taken again while a port
+kernel's events in the trace differ from the launches its wrapper
+counted. Each call passes `marks`, so the program records its spans
+(voxelnet_tpu_torch/tracing.py), each a `voxelnet.<name>` range of the
+trace; the table of the device's idle puts each gap between its ops to
+the innermost such range that covers the gap's midpoint.
 
 The device ops are the trace's `kernel`, `gpu_memcpy` and `gpu_memset`
 events. "launched by" is the aten op (with its input shapes) that the
@@ -40,18 +47,22 @@ import sys
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from voxelnet_tpu_torch.bench import load_frames, make_stage_fn
 from voxelnet_tpu_torch.config import get_config, resolve_plan
-from voxelnet_tpu_torch.kernels import SYMBOLS, source_path
+from voxelnet_tpu_torch.kernels import SYMBOLS, launch_counts, source_path
 from voxelnet_tpu_torch.ops.voxelize import VoxelGridSpec
+from voxelnet_tpu_torch.tools import card
+from voxelnet_tpu_torch.tracing import RANGE_PREFIX
 from voxelnet_tpu_torch.training.train_step import _device
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 NAME_WIDTH = 100
 OP_WIDTH = 90
+OUTSIDE = "outside the program"
 
 
 def port_kernel(name: str) -> str | None:
@@ -70,17 +81,29 @@ class Row(NamedTuple):
     launched_by: str
 
 
+class Gap(NamedTuple):
+    """The device's idle gaps put down to one range, per iteration."""
+
+    range: str
+    ms: float
+    gaps: float
+
+
 class Summary(NamedTuple):
     """A trace's device ops, per iteration of `iters`: rows by time,
     descending; the summed durations (`total_ms`), the union of their
     intervals (`busy_ms`); over the whole trace the span from the first
-    device event's start to the last one's end, and the kernel events."""
+    device event's start to the last one's end, the kernel events, each
+    port kernel's events, and the device's idle by program range
+    (`idle_ranges`)."""
 
     rows: list
     total_ms: float
     busy_ms: float
     span_ms: float
     kernels: int
+    port_events: dict = {}
+    idle: tuple = ()
 
     def row(self, kernel: str) -> Row | None:
         """The row of a port kernel (a key of SYMBOLS), None if it did
@@ -178,7 +201,8 @@ def parse_trace(source, iters: int) -> Summary:
     measurement."""
     events = load_events(source) if isinstance(source, str) else source
     device = [e for e in events if e.get("ph") == "X"
-              and e.get("cat") in DEVICE_CATS and "dur" in e]
+              and e.get("cat") in DEVICE_CATS and "dur" in e
+              and card.PRIMER_SYMBOL not in e.get("name", "")]
     if not device:
         raise RuntimeError(
             "the trace holds no device event (kernel, gpu_memcpy, "
@@ -205,7 +229,41 @@ def parse_trace(source, iters: int) -> Summary:
     return Summary(rows=rows, total_ms=sum(ms.values()) / iters,
                    busy_ms=union_ms(spans) / iters,
                    span_ms=max(b for _, b in spans) / 1e3,
-                   kernels=sum(1 for e in device if e["cat"] == "kernel"))
+                   kernels=sum(1 for e in device if e["cat"] == "kernel"),
+                   port_events=dict(collections.Counter(
+                       k for k in (port_kernel(e.get("name", ""))
+                                   for e in device) if k is not None)),
+                   idle=tuple(idle_ranges(events, spans, t0, iters)))
+
+
+def idle_ranges(events: list[dict], spans, t0: float,
+                iters: int) -> list[Gap]:
+    """The device's idle gaps between its first op and its last (between
+    the merged intervals of `spans`, in us from t0), each put down to the
+    innermost program range (`voxelnet.*`, tracing.py) that covers its
+    midpoint on the trace's clock, OUTSIDE where none does -> the Gaps
+    by time, descending."""
+    gaps, end = [], None
+    for a, b in sorted(spans):
+        if end is not None and a > end:
+            gaps.append((end, a))
+        end = b if end is None else max(end, b)
+    ranges = [e for e in events if e.get("ph") == "X"
+              and e.get("cat") == "user_annotation" and "dur" in e
+              and e.get("name", "").startswith(RANGE_PREFIX)]
+    start = np.array([float(e["ts"]) - t0 for e in ranges])
+    stop = start + np.array([float(e["dur"]) for e in ranges])
+    ms = collections.defaultdict(float)
+    count = collections.Counter()
+    for a, b in gaps:
+        mid = 0.5 * (a + b)
+        cover = np.flatnonzero((start <= mid) & (stop >= mid))
+        name = (ranges[cover[np.argmin(stop[cover] - start[cover])]]["name"]
+                if len(cover) else OUTSIDE)
+        ms[name] += (b - a) / 1e3
+        count[name] += 1
+    return [Gap(n, ms[n] / iters, count[n] / iters)
+            for n in sorted(ms, key=lambda n: -ms[n])]
 
 
 def cpu_summary(prof, iters: int) -> Summary:
@@ -226,28 +284,46 @@ def sync(device: torch.device) -> None:
 
 
 def trace_calls(fn, args, logdir: str, iters: int,
-                device: torch.device):
+                device: torch.device, prime: bool = False):
     """One warm-up fn(*args), then `iters` calls under torch.profiler
     (CPU, and CUDA on a card; input shapes recorded) closed by a sync; the
     Chrome trace written to <logdir>/trace.json.gz -> (host wall seconds
-    per iteration, the trace's path, the profile)."""
+    per iteration, the trace's path, the profile). `prime` on the card:
+    the window opens with tools/card.py's primer, and is taken again, up
+    to card.ATTEMPTS windows, while a port kernel's events in the trace
+    differ from the launches its wrapper counted; then it raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(*args)
     sync(device)
+    on_card = device.type == "cuda"
     activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
+    if on_card:
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, record_shapes=True) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn(*args)
-        sync(device)
-        wall = (time.perf_counter() - t0) / iters
     os.makedirs(logdir, exist_ok=True)
     path = os.path.join(logdir, "trace.json.gz")
-    prof.export_chrome_trace(path)
-    return wall, path, prof
+    checked = prime and on_card
+    for _ in range(card.ATTEMPTS if checked else 1):
+        before = launch_counts()
+        with profile(activities=activities, record_shapes=True) as prof:
+            if checked:
+                card.prime()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn(*args)
+            sync(device)
+            wall = (time.perf_counter() - t0) / iters
+        prof.export_chrome_trace(path)
+        if not checked:
+            return wall, path, prof
+        launched = {k: n - before[k] for k, n in launch_counts().items()}
+        got = parse_trace(path, iters).port_events
+        lost = {k: f"{got.get(k, 0)} events of {n} launches"
+                for k, n in launched.items() if got.get(k, 0) != n}
+        if not lost:
+            return wall, path, prof
+    raise RuntimeError(f"torch.profiler lost port kernel events in "
+                       f"{card.ATTEMPTS} windows, the last: {lost}")
 
 
 class Section(NamedTuple):
@@ -262,8 +338,12 @@ def trace_stage(tag: str, title: str, stage, batch, logdir: str, iters: int,
     num_points) -> its Section."""
     args = tuple(torch.as_tensor(a, device=device)
                  for a in stage.prep(*batch))
-    wall, path, prof = trace_calls(stage.fn, args, os.path.join(logdir, tag),
-                                   iters, device)
+
+    def traced(*inputs):
+        return stage.fn(*inputs, [])
+
+    wall, path, prof = trace_calls(traced, args, os.path.join(logdir, tag),
+                                   iters, device, prime=True)
     summary = (parse_trace(path, iters) if device.type == "cuda"
                else cpu_summary(prof, iters))
     return Section(title, wall * 1e3, summary)
@@ -302,6 +382,17 @@ def write_summary(path: str, header: str, sections: list[Section],
                         f"{_cell(r.launched_by)} | {r.ms:.4f} | "
                         f"{100 * r.ms / max(s.total_ms, 1e-12):.1f}% | "
                         f"{r.calls:g} |\n")
+            if s.idle:
+                idle = sum(g.ms for g in s.idle)
+                f.write(f"\n**Device idle {idle:.3f} ms/iter** between "
+                        "its first op and its last, each gap put down to "
+                        "the innermost program range over its midpoint:\n\n"
+                        "| range | idle ms/iter | % | gaps/iter |\n"
+                        "|---|---|---|---|\n")
+                for g in s.idle:
+                    f.write(f"| {_cell(g.range)} | {g.ms:.4f} | "
+                            f"{100 * g.ms / max(idle, 1e-12):.1f}% | "
+                            f"{g.gaps:g} |\n")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -379,9 +470,13 @@ def main(argv=None) -> list[Section]:
                 "its input shapes, that the profiler links to the op's "
                 "launch; the port's own kernels are launched through "
                 "ctypes under no aten op and are named by their source. "
-                "There is no module span: the port runs no XLA module, so "
-                "no event covers a whole graph; the busy time (the union "
-                "of the device ops' intervals) stands in its place.")
+                "Each window opens with tools/card.py's primer (left out) "
+                "and holds every port kernel's launches. The busy time is "
+                "the union of the device ops' intervals. The program "
+                "traces its calls (tracing.py): each span is a "
+                "`voxelnet.<name>` range, and the idle table puts each gap "
+                "between device ops to the innermost one over its "
+                "midpoint.")
     else:
         what = f"the CPU; torch {torch.__version__}"
         kind = ("`--device cpu`: the table lists CPU ops by self CPU time; "

@@ -37,8 +37,9 @@ import dataclasses
 
 import torch
 
+from voxelnet_tpu_torch import tracing
 from voxelnet_tpu_torch.config import VoxelNetConfig, resolve_plan
-from voxelnet_tpu_torch.models.voxelnet import VoxelNet, build_model, mark
+from voxelnet_tpu_torch.models.voxelnet import VoxelNet, build_model
 from voxelnet_tpu_torch.ops import losses, targets as targets_ops
 from voxelnet_tpu_torch.ops.anchors import anchors_flat
 from voxelnet_tpu_torch.ops.voxelize import (VoxelGridSpec,
@@ -46,6 +47,7 @@ from voxelnet_tpu_torch.ops.voxelize import (VoxelGridSpec,
                                              voxelize_table)
 from voxelnet_tpu_torch.parallel import distributed
 from voxelnet_tpu_torch.parallel.mesh import process_mesh
+from voxelnet_tpu_torch.tracing import mark, stage
 from voxelnet_tpu_torch.training.optim import (ClippedSGD, OptState,
                                                make_optimizer)
 
@@ -168,7 +170,8 @@ def make_train_step(config: VoxelNetConfig, device="cuda",
     the clip), and voxels_clipped (frames whose occupied voxels exceed
     max_voxels) when the step voxelizes. `marks`: a list that receives
     (stage, CUDA event or host time) at the start and after each stage of
-    TRAIN_STAGES ("all_reduce": the gradient's, nothing in one process)."""
+    TRAIN_STAGES ("all_reduce": the gradient's, nothing in one process);
+    passing one also records the step's spans (tracing.py)."""
     resolve_plan(config, train=True)
     data_group = process_mesh(config.system).data_group
     device = _device(device)
@@ -177,31 +180,32 @@ def make_train_step(config: VoxelNetConfig, device="cuda",
 
     def step(state: TrainState, batch,
              marks: list | None = None) -> tuple[TrainState, dict]:
-        model = state.model.train()
-        mark(marks, "start", device)
-        features, coords, counts, clipped = inputs.voxels(batch)
-        mark(marks, "voxelize", device)
-        maps = inputs.targets(batch)
-        mark(marks, "targets", device)
-        cls_logits, reg = model(features, coords, counts)
-        mark(marks, "forward", device)
-        frames = _loss_frames(config, cls_logits, reg, maps)
-        mark(marks, "loss", device)
-        params = list(model.parameters())
-        grads = torch.autograd.grad(frames.loss.sum(), params)
-        mark(marks, "backward", device)
-        grads = distributed.all_reduce_(grads)
-        mark(marks, "all_reduce", device)
-        grad_norm, state.opt_state = optimizer.apply_(params, grads,
-                                                      state.opt_state)
-        mark(marks, "update", device)
-        state.step += 1
-        with torch.no_grad():
-            metrics = _global_metrics(
-                frames, LOSS_METRICS,
-                {} if clipped is None else {"voxels_clipped": clipped},
-                data_group)
-        metrics["grad_norm"] = grad_norm
+        with tracing.call("train", marks, device):
+            model = state.model.train()
+            mark(marks, "start", device)
+            with stage(marks, "voxelize"):
+                features, coords, counts, clipped = inputs.voxels(batch)
+            with stage(marks, "targets"):
+                maps = inputs.targets(batch)
+            with stage(marks, "forward"):
+                cls_logits, reg = model(features, coords, counts)
+            with stage(marks, "loss"):
+                frames = _loss_frames(config, cls_logits, reg, maps)
+            with stage(marks, "backward"):
+                params = list(model.parameters())
+                grads = torch.autograd.grad(frames.loss.sum(), params)
+            with stage(marks, "all_reduce"):
+                grads = distributed.all_reduce_(grads)
+            with stage(marks, "update"):
+                grad_norm, state.opt_state = optimizer.apply_(
+                    params, grads, state.opt_state)
+            state.step += 1
+            with torch.no_grad():
+                metrics = _global_metrics(
+                    frames, LOSS_METRICS,
+                    {} if clipped is None else {"voxels_clipped": clipped},
+                    data_group)
+            metrics["grad_norm"] = grad_norm
         return state, metrics
 
     return step

@@ -464,7 +464,8 @@ class Trainer:
 
         profile_steps: optional (start, stop) global-step window traced by
         torch.profiler (CPU, and CUDA on a card) into <exp_dir>/logs as a
-        Chrome trace (`*.pt.trace.json`).
+        Chrome trace (`*.pt.trace.json`), each step in it a
+        `voxelnet.train` range over its stages' ranges (tracing.py).
         num_vis_dump: image triplets of the first val frames written with
         each epoch's label dump (see dump_val_predictions).
         """
@@ -504,9 +505,12 @@ class Trainer:
                         else:
                             self.timings["host_gap_s"].append(
                                 step_start - step_end)
-                        with torch.profiler.record_function("train"):
-                            self.state, metrics = self.train_step(
-                                self.state, self._on_step_stream(uploaded))
+                        args = (self.state, self._on_step_stream(uploaded))
+                        # inside the profiler's window the step records
+                        # its spans, each a `voxelnet.*` range of the trace
+                        self.state, metrics = (
+                            self.train_step(*args) if profiler is None
+                            else self.train_step(*args, []))
                         step_end = time.perf_counter()
                         global_step += 1
                         steps += 1
