@@ -7,7 +7,7 @@ Car detections against the JAX package's.
 
 Phases, each fatal on failure:
   1. the card: `nvidia-smi` name and power limit, torch's device name;
-  2. build the four CUDA sources of voxelnet_tpu_torch/csrc/ with nvcc,
+  2. build the five CUDA sources of voxelnet_tpu_torch/csrc/ with nvcc,
      one process each, started together;
   3. each kernel against its plain torch version at Car shapes (B=2,
      vendored frames): the fused VFE (>= 99.9% of elements bit-equal, the
@@ -19,6 +19,16 @@ Phases, each fatal on failure:
      device time of the kernels those calls launch (torch.profiler); the
      fused VFE also at the inference B=8 batch, and the dense grid's
      backward gather alone;
+     (b) the train-mode batch norm's four launches (statistics,
+     normalise + ReLU + cast, the backward's reduction and apply) against
+     their plain versions at the cells' B=8 shapes in bf16 (Car middle
+     block 1 NDHWC, RPN 128 and 256 channels NHWC, the VFE's two layers
+     with their point mask, Pedestrian's RPN block 1 at stride 1): y and
+     dx within one bf16 step of their largest magnitude, the sums and
+     running stats within 1e-4, two runs bitwise equal, four launches a
+     call; each step's time, its plain version's and, over the whole
+     call, F.batch_norm + ReLU's; the finalize kernel of several
+     processes; the wrapper's refusals;
   4. the inference main path through cli.predict on the 3 vendored frames
      at full Car width (grid 10x400x352, max_points 65536, max_voxels
      16384, bf16, random init from a seed with random BN statistics), at
@@ -31,8 +41,9 @@ Phases, each fatal on failure:
      slots) through several steps on one batch of vendored frames with
      seeded synthetic Car boxes; every metric finite and the loss falling;
      launch counts of the run-copy and dense-grid kernels read around
-     those steps; one step at the tiny f32 grid on the card against the
-     CPU; CUDA-event step times with the stage split and peak memory at
+     those steps, and the batch norm's four kernels 25 times a step each
+     (its finalize never, one gradient copy a step at most); one step at
+     the tiny f32 grid on the card against the CPU; CUDA-event step times with the stage split and peak memory at
      B=2 and B=8, and a profiler kernel table of one step at B=8;
   6. the trainer at full Car width: a mini KITTI tree in a temporary
      directory (the vendored frames written several times, label files of
@@ -211,9 +222,10 @@ from voxelnet_tpu_torch.config import get_config
 from voxelnet_tpu_torch.data import augment as augment_lib
 from voxelnet_tpu_torch.data.sample import sample_frames
 from voxelnet_tpu_torch.kernels import (KERNELS, REPLACES, SOURCES, _build,
-                                        dense_build, launch_counts,
-                                        reset_launches, run_copy,
-                                        source_path, sparse_conv, vfe_fused)
+                                        batch_norm, dense_build,
+                                        launch_counts, reset_launches,
+                                        run_copy, source_path, sparse_conv,
+                                        vfe_fused)
 from voxelnet_tpu_torch.models.init import randomize_bn_
 from voxelnet_tpu_torch.models.sparse_conv import weight_matrix
 from voxelnet_tpu_torch.models.voxelnet import (STAGES, build_model,
@@ -266,7 +278,8 @@ HOST_VOX_REPS = 5
 CAR_PARAMS = 6_809_392
 # the PR whose design each kernel runs
 DESIGN_PR = {"vfe_fused": 3, "dense_build": 1, "run_copy": 2,
-             "sparse_conv": 9, "sparse_conv_grad": 8, "occupancy_map": 15}
+             "sparse_conv": 9, "sparse_conv_grad": 8, "occupancy_map": 15,
+             **dict.fromkeys(batch_norm.KERNELS, 19)}
 # timed shapes beside each kernel's Car B=2 one: the fused VFE at the
 # inference B=8 batch; the dense grid in f32 (train) and its backward (a
 # torch gather, no kernel of the port); sparse_conv in f32, with its ReLU
@@ -279,7 +292,15 @@ EXTRA_SHAPES = {"vfe_fused": ("vfe_fused_b8",),
                                 "sparse_conv_b8", "sparse_conv_b8_f32",
                                 "sparse_conv_product", "sparse_conv_grid"),
                 "sparse_conv_grad": ("sparse_conv_grad_b8",),
-                "occupancy_map": ("occupancy_map_b8",)}
+                "occupancy_map": ("occupancy_map_b8",),
+                # the batch norm's steps at the cells' other shapes, and the
+                # whole call (forward and backward) with its yardstick
+                **{k: tuple(f"{k}_{n}" for n in (
+                    "car_rpn128", "car_rpn256", "car_vfe16", "car_vfe64",
+                    "ped_rpn128"))
+                   + (("bn_call",) if k == "bn_stats" else ())
+                   for k in ("bn_stats", "bn_apply", "bn_bwd_reduce",
+                             "bn_bwd_apply")}}
 
 
 class CheckFailed(RuntimeError):
@@ -528,6 +549,369 @@ def phase_kernels(config, model, frames, device, card):
     return times, errs, bounds
 
 
+# ---- phase 3 (b): the train-mode batch norm's four launches
+
+# the cells' batch-norm inputs at B=8, name -> (shape in memory order, C
+# last; the channel dim of the view the model hands over; row mask; ReLU):
+# Car middle block 1 (NDHWC behind NCDHW), Car RPN block 1 and the
+# deconvolutions' 256-channel outputs at its map, the VFE's two layers with
+# their point mask, Pedestrian's RPN block 1 at stride 1
+BN_SHAPES = {
+    "car_middle": ((8, 5, 400, 352, 64), 1, False, True),
+    "car_rpn128": ((8, 200, 176, 128), 1, False, True),
+    "car_rpn256": ((8, 200, 176, 256), 1, False, True),
+    "car_vfe16": ((8, 16384, 35, 16), 3, True, False),
+    "car_vfe64": ((8, 16384, 35, 64), 3, True, False),
+    "ped_rpn128": ((8, 200, 240, 128), 1, False, True),
+}
+# the shape whose times fill the kernels' rows; the others are extra rows
+BN_TIMED = "car_middle"
+# kernel against plain, bf16: y and dx within this share of their largest
+# magnitude in each channel (the statistics sum in another order, so an
+# element may round to the neighbouring bf16 value), d gamma, d beta and
+# the running stats within BN_SUM_REL of theirs
+BN_BF16_REL = 2.0 ** -7
+BN_SUM_REL = 1e-4
+# the backward's apply alone, its batch-statistics part scale * g - dx
+# against that part computed in f64: each element within dx's own bf16
+# rounding (half a step, 2^-8 of |dx| with room) and BN_PART_REL of the
+# part's largest magnitude in its channel
+BN_PART_REL = 2.0 ** -12
+BN_STEPS = ("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_apply")
+# train-mode BN calls a step: the VFE's 2, the middle's 3, the RPN's 20
+BN_CALLS_A_STEP = 25
+
+
+def bn_inputs(shape, dim, masked, device, seed=SEED):
+    """x (bf16, channels innermost in memory, viewed with channels on
+    `dim`), with channel 0 nearly constant (0.25, a bf16 step above it on
+    one row in 4096: a variance under the f32 statistics' rounding, so
+    E[x^2] - E[x]^2 may clip at 0); the VFE's (B, K, T, 1) mask of the
+    stored points (about 4 of 35 a voxel) or None; the upstream gradient
+    in x's layout with a part along x, randn + 0.5 * xhat, so that dx's
+    batch-statistics terms are as large as dx itself; and a BN module with
+    random affine and running stats."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    base = torch.randn(shape, generator=g, device=device) * 2 + 0.3
+    rare = torch.rand(shape[:-1], generator=g, device=device) < 1 / 4096
+    base[..., 0] = torch.where(rare, 0.25 + 2.0 ** -9, 0.25)
+    base = base.to(torch.bfloat16)
+    rows = tuple(range(len(shape) - 1))
+    xf = base.float()
+    var, mean = torch.var_mean(xf, rows, correction=0)
+    dy = torch.randn(shape, generator=g, device=device).add_(
+        (xf - mean) * torch.rsqrt(var + 1e-5), alpha=0.5)
+    del xf
+    x = base.movedim(-1, dim)
+    dy = dy.to(torch.bfloat16).movedim(-1, dim)
+    mask = None
+    if masked:
+        counts = torch.randint(0, 9, shape[:2], generator=g, device=device)
+        mask = (torch.arange(shape[2], device=device)
+                < counts[..., None])[..., None]
+    c = shape[-1]
+    bn = torch.nn.BatchNorm1d(c).to(device).train()
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=g)
+        bn.bias.normal_(0, 0.3, generator=g)
+        bn.running_mean.normal_(0, 0.1, generator=g)
+        bn.running_var.uniform_(0.5, 1.5, generator=g)
+    return x, mask, dy, bn
+
+
+def bn_call(bn, x, dim, mask, relu, dy):
+    """One train-mode BN call through flax_batch_norm and its backward ->
+    y, dx, d gamma, d beta, running mean, running var."""
+    from voxelnet_tpu_torch.models.bn import flax_batch_norm
+
+    bn.weight.grad = bn.bias.grad = None
+    xg = x.detach().requires_grad_()
+    y = flax_batch_norm(bn, xg, dim, mask, relu=relu,
+                        out_dtype=torch.bfloat16)
+    y.backward(dy)
+    return (y.detach(), xg.grad, bn.weight.grad, bn.bias.grad,
+            bn.running_mean.clone(), bn.running_var.clone())
+
+
+def bn_plain_call(bn, x, dim, mask, relu, dy):
+    """The same with the plain steps of kernels/batch_norm.py on the card."""
+    K = batch_norm
+    st = K.finalize_plain(K.sums_plain(x, dim, mask), bn.weight,
+                          bn.running_mean, bn.running_var, True, 0.9, 1e-5)
+    y = K.normalise_plain(x, dim, st, bn.bias, relu, torch.bfloat16)
+    sums = K.backward_sums_plain(x, dim, dy, st, bn.bias, relu)
+    dx = K.backward_input_plain(x, dim, dy, mask, st, bn.bias, sums, relu)
+    return (y, dx, sums[1], sums[0], bn.running_mean.clone(),
+            bn.running_var.clone())
+
+
+def bn_channel_gap(err, ref, dim) -> float:
+    """The widest of each channel's largest `err` over the largest |ref|
+    of that channel (channels on `dim`)."""
+    def per_channel(t):
+        return t.movedim(dim, -1).reshape(-1, t.shape[dim]).amax(0)
+    return float((per_channel(err)
+                  / per_channel(ref.abs()).clamp_min(1e-30)).max())
+
+
+def bn_part_gaps(x, dim, mask, relu, dy, bn) -> dict:
+    """The backward's apply alone, on the kernels' statistics with the
+    clamp forced on every 4th channel and sums as several processes would
+    hand over (the local d beta x 1.25, d gamma x 0.75): the part
+    scale * g - dx of the kernel's bf16 dx against that part in f64 ->
+    {"dx_part": its gap, in units of the limit (<= 1 passes), and the
+    same gap of three wrong parts, which the check must refuse: the
+    variance term kept where clamped, the local sums, the variance term
+    dropped everywhere}."""
+    K, w, b = batch_norm, bn.weight.detach(), bn.bias.detach()
+    st = K.statistics(x, dim, mask, w, bn.running_mean, bn.running_var,
+                      False, 0.9, 1e-5)
+    st[3, ::4] = 1.0
+    local = K.backward_sums(x, dim, dy, st, b, relu)
+    sums = local * torch.tensor([[1.25], [0.75]], device=x.device)
+    dx = K.backward_input(x, dim, dy, mask, st, b, sums, relu).double()
+    S = K.Stats(*st)
+    sh = [1] * x.dim()
+    sh[dim] = -1
+    t = x.float() - S.mean.view(sh)
+    g = dy.double()
+    if relu:
+        g = g * ((t * S.scale.view(sh) + b.view(sh)) > 0)
+    scale = S.scale.double().view(sh)
+    got = scale * g - dx
+    del g
+    room = 2.0 ** -8 * dx.abs()
+    del dx
+    t = t.double() * S.invstd.double().view(sh)
+    n = S.n.double()
+
+    def gap(s, clamped):
+        b_var = torch.where(clamped != 0, 0.0, s[1].double() / n)
+        part = (s[0].double() / n).view(sh) + t * b_var.view(sh)
+        if mask is not None:
+            part = part * mask
+        part = part * scale
+        return bn_channel_gap(((got - part).abs() - room).clamp_min(0),
+                              part, dim) / BN_PART_REL
+
+    return {"dx_part": gap(sums, S.clamped),
+            "wrong_kept_var": gap(sums, torch.zeros_like(S.clamped)),
+            "wrong_local_sums": gap(local, S.clamped),
+            "wrong_no_var": gap(sums, torch.ones_like(S.clamped))}
+
+
+def bn_check(name, device) -> dict:
+    """The train-mode BN call at BN_SHAPES[name] on the card: four launches
+    and no gradient copy, two runs bitwise equal, y and dx within
+    BN_BF16_REL of the plain steps' in each channel and the sums within
+    BN_SUM_REL, the backward's apply within its limit (bn_part_gaps) and
+    each wrong part refused -> the gaps."""
+    shape, dim, masked, relu = BN_SHAPES[name]
+    K = batch_norm
+    x, mask, dy, bn = bn_inputs(shape, dim, masked, device)
+    state = {k: v.clone() for k, v in bn.state_dict().items()}
+    before, copies = dict(K.launches), K.dy_copies
+    got = bn_call(bn, x, dim, mask, relu, dy)
+    torch.cuda.synchronize()
+    made = {k: K.launches[k] - before[k] for k in before}
+    check(made == {**dict.fromkeys(K.KERNELS, 0),
+                   **dict.fromkeys(BN_STEPS, 1)}
+          and K.dy_copies == copies,
+          f"bn {name}: launches {made}, {K.dy_copies - copies} copies")
+    bn.load_state_dict(state)
+    again = bn_call(bn, x, dim, mask, relu, dy)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"bn {name}: two runs differ")
+    del again
+    bn.load_state_dict(state)
+    want = bn_plain_call(bn, x, dim, mask, relu, dy)
+    gaps = {}
+    for what, a, b in zip(("y", "dx"), got, want):
+        gaps[what] = bn_channel_gap((a.float() - b.float()).abs(), b.float(),
+                                    dim)
+        check(gaps[what] <= BN_BF16_REL,
+              f"bn {name}: {what} {gaps[what]} of its channel's largest "
+              f"magnitude from plain, above {BN_BF16_REL}")
+    for what, a, b in zip(("d_gamma", "d_beta", "running_mean",
+                           "running_var"), got[2:], want[2:]):
+        gaps[what] = float((a - b).abs().max()) / max(
+            float(b.abs().max()), 1e-30)
+        check(gaps[what] <= BN_SUM_REL,
+              f"bn {name}: {what} {gaps[what]} of its largest magnitude "
+              f"from plain, above {BN_SUM_REL}")
+    gaps["y_bit_equal"] = float((got[0] == want[0]).float().mean())
+    # whether channel 0's statistics clipped (the part check forces it)
+    gaps["x0_clamped"] = float(K.Stats(*K.statistics(
+        x, dim, mask, bn.weight.detach(), bn.running_mean, bn.running_var,
+        False, 0.9, 1e-5)).clamped[0])
+    del got, want
+    bl = bn_part_gaps(x, dim, mask, relu, dy, bn)
+    check(bl["dx_part"] <= 1 and min(v for k, v in bl.items()
+                                     if k.startswith("wrong")) > 1,
+          f"bn {name}: backward apply's part {bl} (limit 1)")
+    gaps.update(bl)
+    return gaps
+
+
+def bn_bytes(x, mask, dim) -> dict:
+    """Each step's bytes read once and written once (bf16 in and out)."""
+    n = x.numel()
+    counted = n if mask is None else int(mask.sum()) * x.shape[dim]
+    rows = 0 if mask is None else mask.numel()
+    return {"bn_stats": 2 * counted + rows, "bn_apply": 4 * n,
+            "bn_bwd_reduce": 4 * n, "bn_bwd_apply": 6 * n + rows}
+
+
+def phase_batch_norm(device, card):
+    """(b) The batch norm's kernels against their plain versions at the
+    cells' shapes, bf16 (bn_check: outputs within BN_BF16_REL of each
+    channel, sums within BN_SUM_REL, the backward's apply on its own with
+    clamped channels and several processes' sums, two runs bitwise equal,
+    four launches a call); the wrapper refuses a layout or a mix of types
+    the kernels do not take; each step's time beside its
+    bound, the plain steps' and F.batch_norm + ReLU's (a one-call
+    yardstick the port never calls) -> (times, errs, bounds) of the
+    kernels and of each extra shape."""
+    print("[3] (b) the train-mode batch norm's kernels (B=8, bf16)")
+    times, errs, bounds = {}, dict.fromkeys(batch_norm.KERNELS, 0.0), {}
+    for name, (shape, dim, masked, relu) in BN_SHAPES.items():
+        worst = bn_check(name, device)
+        print(f"  {name} {shape} (memory order) channel dim {dim}, mask "
+              f"{masked}, relu {relu}: gaps {worst}; two runs bitwise equal")
+        for k in ("bn_stats", "bn_apply"):
+            errs[k] = max(errs[k], worst["y"])
+        for k in ("bn_bwd_reduce", "bn_bwd_apply"):
+            errs[k] = max(errs[k], worst["dx"])
+        x, mask, dy, bn = bn_inputs(shape, dim, masked, device)
+
+        # each step alone, on the statistics of one call
+        K = batch_norm
+        st = K.statistics(x, dim, mask, bn.weight, bn.running_mean,
+                          bn.running_var, False, 0.9, 1e-5)
+        sums = K.backward_sums(x, dim, dy, st, bn.bias, relu)
+        pst = K.finalize_plain(K.sums_plain(x, dim, mask), bn.weight,
+                               bn.running_mean, bn.running_var, False, 0.9,
+                               1e-5)
+        w, b = bn.weight.detach(), bn.bias.detach()
+        steps = {
+            "bn_stats": (
+                lambda: K.statistics(x, dim, mask, w, bn.running_mean,
+                                     bn.running_var, False, 0.9, 1e-5),
+                lambda: K.finalize_plain(K.sums_plain(x, dim, mask), w,
+                                         bn.running_mean, bn.running_var,
+                                         False, 0.9, 1e-5)),
+            "bn_apply": (
+                lambda: K.normalise(x, dim, st, b, relu, torch.bfloat16),
+                lambda: K.normalise_plain(x, dim, pst, b, relu,
+                                          torch.bfloat16)),
+            "bn_bwd_reduce": (
+                lambda: K.backward_sums(x, dim, dy, st, b, relu),
+                lambda: K.backward_sums_plain(x, dim, dy, pst, b, relu)),
+            "bn_bwd_apply": (
+                lambda: K.backward_input(x, dim, dy, mask, st, b, sums,
+                                         relu),
+                lambda: K.backward_input_plain(x, dim, dy, mask, pst, b,
+                                               sums, relu)),
+        }
+        nb = bn_bytes(x, mask, dim)
+        # F.batch_norm + ReLU forward and backward (cuDNN on the card): a
+        # yardstick over the whole call
+        xl = x.detach().movedim(dim, 1).requires_grad_()
+        dyl = dy.movedim(dim, 1)
+
+        def library():
+            out = torch.nn.functional.batch_norm(
+                xl, None, None, bn.weight, bn.bias, training=True,
+                momentum=0.1, eps=1e-5)
+            if relu:
+                out = torch.relu(out)
+            out.backward(dyl)
+
+        def whole():
+            bn_call(bn, x, dim, mask, relu, dy)
+
+        def whole_plain():
+            bn_plain_call(bn, x, dim, mask, relu, dy)
+
+        suffix = "" if name == BN_TIMED else f"_{name}"
+        for k, (kernel, plain) in steps.items():
+            times[k + suffix] = (timed(kernel, 20), timed(plain, 5), None)
+            bounds[k + suffix] = bound(nb[k])
+        times["bn_call" + suffix] = (timed(whole, 10), timed(whole_plain, 3),
+                                     timed(library, 10))
+        bounds["bn_call" + suffix] = bound(sum(nb.values()))
+        for k in (*steps, "bn_call"):
+            kt, pt, lt = times[k + suffix]
+            print(f"    {k}: kernel {kt['ms']} ms (device "
+                  f"{kt['device_ms']} ms), plain {pt['ms']} ms (device "
+                  f"{pt['device_ms']} ms)"
+                  + (f", F.batch_norm + ReLU {lt['ms']} ms (device "
+                     f"{lt['device_ms']} ms)" if lt else "")
+                  + f"; bound {bounds[k + suffix][0]} ms, share "
+                  f"{bounds[k + suffix][0] / kt['device_ms']} [{card}]")
+        del x, mask, dy, bn, st, sums, pst, xl, dyl
+        torch.cuda.empty_cache()
+
+    # the finalize of several processes: one block over C channels
+    sums3 = torch.rand((3, 64), device=device) + 1
+    bn = torch.nn.BatchNorm1d(64).to(device)
+    stats = torch.empty((5, 64), device=device)
+    lib = batch_norm._lib()
+
+    def finalize():
+        _build.check(lib.bn_finalize_launch(
+            sums3.data_ptr(), 64, *batch_norm._finalize_args(
+                bn.weight, bn.running_mean, bn.running_var, False, 0.9,
+                1e-5), stats.data_ptr(), _build.stream(0)), "bn_finalize")
+        batch_norm._launched("bn_finalize")
+
+    times["bn_finalize"] = (timed(finalize, 50), None, None)
+    bounds["bn_finalize"] = bound(nbytes(sums3, stats) + 4 * 64 * 3)
+    want = batch_norm.finalize_plain(sums3, bn.weight, bn.running_mean,
+                                     bn.running_var, False, 0.9, 1e-5)
+    errs["bn_finalize"] = max(float((a - b).abs().max() / b.abs().max())
+                              for a, b in zip(stats, want))
+    check(errs["bn_finalize"] <= 1e-6,
+          f"bn_finalize {errs['bn_finalize']} from plain")
+    print(f"  bn_finalize (C=64): {times['bn_finalize'][0]}, "
+          f"{errs['bn_finalize']} from plain")
+
+    # what the kernels do not take raises
+    x = torch.zeros((2, 16, 4, 4), device=device, dtype=torch.bfloat16)
+    bn16 = torch.nn.BatchNorm1d(16).to(device)
+    for what, bad, dim in (
+            ("channel-outer", x, 1),
+            ("f16", x.to(torch.float16).movedim(1, -1), 3),
+            ("C=24", torch.zeros((4, 24), device=device,
+                                 dtype=torch.bfloat16), 1),
+            ("strided rows", torch.zeros((4, 32), device=device,
+                                         dtype=torch.bfloat16)[:, :16], 1)):
+        try:
+            batch_norm.statistics(bad, dim, None, bn16.weight,
+                                  bn16.running_mean, bn16.running_var,
+                                  False, 0.9, 1e-5)
+        except ValueError as e:
+            print(f"  refuses {what}: {e}")
+        else:
+            check(False, f"bn: the wrapper took {what}")
+    x = torch.zeros((2, 4, 4, 16), device=device, dtype=torch.bfloat16)
+    st = batch_norm.statistics(x, 3, None, bn16.weight, bn16.running_mean,
+                               bn16.running_var, False, 0.9, 1e-5)
+    for what, step in (
+            ("y in f32 for a bf16 x", lambda: batch_norm.normalise(
+                x, 3, st, bn16.bias, True, torch.float32)),
+            ("an f32 dy for a bf16 x", lambda: batch_norm.backward_sums(
+                x, 3, x.float(), st, bn16.bias, True))):
+        try:
+            step()
+        except ValueError as e:
+            print(f"  refuses {what}: {e}")
+        else:
+            check(False, f"bn: the wrapper took {what}")
+    return times, errs, bounds
+
+
 def check_detections(det, config, batch):
     post = config.rpn.nms_post_topk
     check(det.boxes.shape == (batch, post, 7), f"boxes {det.boxes.shape}")
@@ -738,6 +1122,7 @@ def phase_train(frames, device, card, seed, overrides=None, batch_size=2,
                                device=device)
     step = make_train_step(config, device)
     reset_launches()
+    copies = batch_norm.dy_copies
     losses = []
     for i in range(TRAIN_STEPS):
         state, metrics = step(state, batch)
@@ -748,6 +1133,14 @@ def phase_train(frames, device, card, seed, overrides=None, batch_size=2,
     launches = launch_counts()
     print(f"  launches {launches}")
     check_launched("train path", launches, ran, idle)
+    # every train-mode BN call ran the kernels; the gradient read where it
+    # lies but for the middle's last block (the BEV fold hands it back
+    # with depth innermost): one copy a step
+    check(all(launches[k] == BN_CALLS_A_STEP * TRAIN_STEPS for k in BN_STEPS)
+          and launches["bn_finalize"] == 0
+          and batch_norm.dy_copies - copies <= TRAIN_STEPS,
+          f"train path: BN launches {launches}, "
+          f"{batch_norm.dy_copies - copies} gradient copies")
     check(losses[-1] < 0.9 * losses[0],
           f"loss did not fall: first {losses[0]}, last {losses[-1]}")
     del state
@@ -2396,16 +2789,17 @@ BENCH_RUNS = (
     ("dense", ["--stage", "dense"], ("vfe_fused", "dense_build")),
     ("middle", ["--stage", "middle"], ("vfe_fused", "dense_build")),
     ("infer", ["--stage", "infer"], ("vfe_fused", "dense_build")),
-    ("train", ["--stage", "train"], ("run_copy", "dense_build")),
+    ("train", ["--stage", "train"], ("run_copy", "dense_build", *BN_STEPS)),
     ("targets", ["--stage", "targets"], ()),
     ("middle_sparse1", ["--stage", "middle", "--middle-backend", "sparse1"],
      ("vfe_fused", "occupancy_map", "sparse_conv")),
     ("infer_sparse1", ["--stage", "infer", "--middle-backend", "sparse1"],
      ("vfe_fused", "occupancy_map", "sparse_conv")),
     ("train_sparse1", ["--stage", "train", "--middle-backend", "sparse1"],
-     ("run_copy", "occupancy_map", "sparse_conv", "sparse_conv_grad")),
+     ("run_copy", "occupancy_map", "sparse_conv", "sparse_conv_grad",
+      *BN_STEPS)),
     ("train_host_voxelize", ["--stage", "train", "--host-voxelize"],
-     ("dense_build",)),
+     ("dense_build", *BN_STEPS)),
     ("infer_b1", ["--stage", "infer", "--batch", "1"],
      ("vfe_fused", "dense_build")),
 )
@@ -2470,7 +2864,8 @@ PROFILE_RUNS = (
     ("infer_sparse1", ["--stage", "infer", "--middle-backend", "sparse1"],
      "phase 10 (b)", {"vfe_fused": 1, "occupancy_map": 1, "sparse_conv": 1}),
     ("train", ["--stage", "train"], "phase 5",
-     {"run_copy": 1, "dense_build": 1}),
+     {"run_copy": 1, "dense_build": 1,
+      **dict.fromkeys(BN_STEPS, BN_CALLS_A_STEP)}),
 )
 PROFILE_ITERS = 3
 # the tool's device busy time a call against print_profile's for the same
@@ -2797,7 +3192,8 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     _build.build(SOURCES)
-    for module in (vfe_fused, dense_build, run_copy, sparse_conv):
+    for module in (vfe_fused, dense_build, run_copy, sparse_conv,
+                   batch_norm):
         _build.load(module.__name__.rsplit(".", 1)[1], module._ARGTYPES)
     print(f"[2] built {sorted(_build.build_seconds)} in "
           f"{time.perf_counter() - t0} s ({_build.build_seconds})")
@@ -2809,6 +3205,9 @@ def main(argv=None):
     config = get_config("Car")
     model = make_model(config, device)
     times, errs, bounds = phase_kernels(config, model, frames, device, card)
+    for part, extra in zip((times, errs, bounds),
+                           phase_batch_norm(device, card)):
+        part.update(extra)
     infer_launches, conv3d_dets = phase_main_path(model, frames, device)
     phase_small_reference(device)
     infer_fps, infer_busy = phase_timing(model, frames, device, card)
@@ -2874,7 +3273,9 @@ def main(argv=None):
                 "run_copy": train_launches["run_copy"],
                 "sparse_conv": sparse_infer["sparse_conv"],
                 "sparse_conv_grad": sparse_train["sparse_conv_grad"],
-                "occupancy_map": sparse_infer["occupancy_map"]}
+                "occupancy_map": sparse_infer["occupancy_map"],
+                **{k: train_launches[k] for k in BN_STEPS},
+                "bn_finalize": dp_launches["bn_finalize"]}
     print(card)
     by_path = {"inference": infer_launches, "train": train_launches,
                "trainer": trainer_launches,

@@ -11,6 +11,7 @@ import os
 import subprocess
 import sys
 
+import chip_smoke
 import numpy as np
 import pytest
 import torch
@@ -261,6 +262,58 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
             torch.zeros(1, **i32), torch.zeros(1, 8, **i32),
             torch.zeros(16, 8, **f32), torch.zeros(16, 3, **f32),
             torch.zeros(64, 32, **f32), torch.zeros(64, 3, **f32), 128)
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.BN_SHAPES))
+def test_batch_norm_kernels_match_plain(cuda_device, name):
+    """The train-mode BN's four launches at the cells' shapes in bf16
+    (chip_smoke.bn_check): against the plain steps on the card, y and dx
+    within one bf16 step of their largest magnitude in each channel (the
+    statistics sum in another order), d gamma, d beta and the running
+    stats within 1e-4, with an upstream gradient along x and a nearly
+    constant channel; the backward's apply alone on clamped channels and
+    several processes' sums, its batch-statistics part against f64 within
+    dx's own rounding, and three wrong parts refused; two runs bitwise
+    equal; four launches, no gradient copied into x's layout."""
+    gaps = chip_smoke.bn_check(name, cuda_device)
+    assert gaps["dx_part"] <= 1
+    assert min(gaps[k] for k in gaps if k.startswith("wrong")) > 1
+
+
+def test_batch_norm_wrapper_refuses_what_the_kernels_do_not_take(
+        cuda_device):
+    from voxelnet_tpu_torch.kernels import batch_norm as K
+
+    bn = torch.nn.BatchNorm1d(16).to(cuda_device)
+    args = (bn.weight, bn.running_mean, bn.running_var, False, 0.9, 1e-5)
+    bf16 = dict(device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="channels-last"):
+        K.statistics(torch.zeros(2, 16, 4, 4, **bf16), 1, None, *args)
+    with pytest.raises(ValueError, match="bfloat16 or torch.float32"):
+        K.statistics(torch.zeros(2, 4, 4, 16, device=cuda_device,
+                                 dtype=torch.float16), 3, None, *args)
+    with pytest.raises(ValueError, match="power of two"):
+        K.statistics(torch.zeros(4, 24, **bf16), 1, None, *args)
+    with pytest.raises(ValueError, match="channels-last"):
+        K.statistics(torch.zeros(4, 32, **bf16)[:, :16], 1, None, *args)
+    with pytest.raises(ValueError, match="f32"):
+        K.statistics(torch.zeros(4, 16, **bf16), 1, None, bn.weight.double(),
+                     *args[1:])
+    with pytest.raises(ValueError, match="row mask"):
+        K.statistics(torch.zeros(2, 4, 16, **bf16), 2,
+                     torch.ones(2, 4, dtype=torch.bool, device=cuda_device),
+                     *args)
+    x = torch.zeros(2, 4, 4, 16, **bf16)
+    st = K.statistics(x, 3, None, *args)
+    with pytest.raises(ValueError, match="store y in x's type"):
+        K.normalise(x, 3, st, bn.bias, True, torch.float32)
+    for step in (lambda dy: K.backward_sums(x, 3, dy, st, bn.bias, True),
+                 lambda dy: K.backward_input(x, 3, dy, None, st, bn.bias,
+                                             st[:2], True)):
+        with pytest.raises(ValueError, match="dy of x's type"):
+            step(x.float())
+        with pytest.raises(ValueError, match="dy of x's type"):
+            step(x.movedim(3, 1).contiguous().movedim(1, 3))
 
 
 def _sparse_table(rng, grid, K):

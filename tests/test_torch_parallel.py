@@ -71,10 +71,11 @@ def _bn_inputs(rng, masked: bool) -> dict:
 
 def _all_cases(tmp: str) -> dict:
     rng = np.random.default_rng(0)
-    cases = {"allreduce": ("allreduce", {})}
+    cases = {}
     for masked in (False, True):
         cases[f"bn-{'masked' if masked else 'dense'}"] = (
             "bn", _bn_inputs(rng, masked))
+    cases["bn-relu"] = ("bn", dict(_bn_inputs(rng, False), relu=True))
     cfg = get_config("Car", **F64)
     init = build_model(cfg, seed=3).state_dict()
     batch = step_batch(cfg, seed=3, n=1800)
@@ -123,14 +124,8 @@ def _close(got, want, what):
 
 # --- the helpers --------------------------------------------------------------
 
-def test_all_reduce_sum_forward_and_backward(dp):
-    """Rank r holds x = r + 1; y = all_reduce_sum(x^2) is 5 on both; each
-    rank's backward of y gives the global gradient 2 * 2 * x: 4 and 8."""
-    _, outs = dp
-    assert [o["allreduce"]["y"] for o in outs] == [5.0, 5.0]
-    assert [o["allreduce"]["grad"] for o in outs] == [4.0, 8.0]
+def test_helpers_without_a_group_are_the_identity():
     x = torch.tensor(3.0, requires_grad=True)
-    assert distributed.all_reduce_sum(x) is x      # no group: the identity
     assert distributed.all_reduce_([x])[0] is x
     one = mesh.process_mesh(get_config("Car").system)
     assert one.process_shard() is None
@@ -215,7 +210,7 @@ def test_train_cli_refuses_several_processes_without_exp_dir(monkeypatch):
 
 # --- BatchNorm over the global batch ------------------------------------------
 
-@pytest.mark.parametrize("case", ["bn-dense", "bn-masked"])
+@pytest.mark.parametrize("case", ["bn-dense", "bn-masked", "bn-relu"])
 def test_batch_norm_statistics_are_global(dp, case):
     """flax_batch_norm on 2 ranks == one process on the global batch:
     values, the input's gradient, the affine's gradient (summed over the
@@ -231,6 +226,24 @@ def test_batch_norm_statistics_are_global(dp, case):
         for o in outs:
             _close(o[case][key], want[key], key)
         assert not torch.equal(want[key], cases[case][1]["bn_state"][key])
+
+
+@pytest.mark.parametrize("case", ["bn-dense", "bn-masked", "bn-relu"])
+def test_batch_norm_affine_gradients_come_back_local(dp, case):
+    """Each rank's d gamma and d beta are its own rows' part alone (the
+    data-parallel gradient all-reduce then sums them once): the gradient of
+    one process on the global batch whose upstream gradient is zero off
+    that rank's rows."""
+    cases, outs = dp
+    kw = cases[case][1]
+    b = kw["x"].shape[0]
+    for r, o in enumerate(outs):
+        w = torch.zeros_like(kw["w"])
+        lo, hi = r * b // len(outs), (r + 1) * b // len(outs)
+        w[lo:hi] = kw["w"][lo:hi]
+        want = bn_case(**dict(kw, w=w))
+        for key in ("weight_grad", "bias_grad"):
+            _close(o[case][key], want[key], f"rank {r} {key}")
 
 
 # --- the train step -------------------------------------------------------------

@@ -319,15 +319,16 @@ def infer_record(iters, pairs, live, wait_ms, root_ms):
           "host.wait_ns": [int(wait_ms * 1e6 / 2)] * 2})
 
 
-def train_record(bn_ms):
+def train_record(bn_ms, launches):
     made("train", [("train", None, 0, 10 ** 9), ("forward", 0, 0, 10 ** 8)]
          + [("bn", 1, 0, int(ms * 1e6)) for ms in bn_ms[:-1]]
-         + [("bn.backward", 0, 0, int(bn_ms[-1] * 1e6))])
+         + [("bn.backward", 0, 0, int(bn_ms[-1] * 1e6))],
+         {"bn.launches": [1] * launches})
 
 
 READINGS = {"nms_iters.infer": 4.0, "nms_iou_useful.infer": 25.0,
             "host_wait_ms.infer": 3.0, "host_busy_ms.infer": 12.0,
-            "bn_ms.train": 4.0}
+            "bn_ms.train": 4.0, "bn_launches.train": 98.0}
 
 
 @pytest.mark.parametrize("metric", sorted(READINGS))
@@ -335,8 +336,8 @@ def test_readers_on_hand_made_records(metric, monkeypatch):
     read = reader(metric).read
     infer_record(3, 128, 34, 2.0, 10.0)
     infer_record(5, 128, 30, 4.0, 20.0)
-    train_record([1.0, 2.0, 3.0])
-    train_record([1.5, 0.5])
+    train_record([1.0, 2.0, 3.0], 100)
+    train_record([1.5, 0.5], 96)
     infer_cell = metric.endswith(".infer")
     r = types.SimpleNamespace(calls=2)
     # the traced window is the last r.calls calls of the ring
@@ -366,6 +367,9 @@ def test_new_metrics_are_in_the_benchmark():
                          else [c + "-train-b8" for c in ("car", "ped")])
         assert os.path.exists(os.path.join(REPO, "benchmarks", "metrics",
                                            f"{metric}.py"))
-    assert [m["name"] for m in bench["per_layer"]][-5:] == [
+    assert [m["name"] for m in bench["per_layer"]][-6:] == [
         "nms_iters.infer", "nms_iou_useful.infer", "host_wait_ms.infer",
-        "host_busy_ms.infer", "bn_ms.train"]
+        "host_busy_ms.infer", "bn_ms.train", "bn_launches.train"]
+    assert entries["bn_launches.train"]["source"] == "program_counter"
+    assert entries["bn_launches.train"]["layer"] == entries[
+        "bn_ms.train"]["layer"] == "batch-norm"

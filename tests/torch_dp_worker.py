@@ -52,27 +52,18 @@ def config(overrides: dict, model: int = 1):
     return get_config("Car", **dict(overrides, system=system))
 
 
-def allreduce_case() -> dict:
-    """x = rank + 1; y = all_reduce_sum(x^2) and the gradient of x from
-    this rank's backward of y."""
-    x = torch.tensor(distributed.rank() + 1.0, dtype=torch.float64,
-                     requires_grad=True)
-    y = distributed.all_reduce_sum(x * x)
-    y.backward()
-    return {"y": float(y), "grad": float(x.grad)}
-
-
-def bn_case(x, w, bn_state, channel_dim, mask=None) -> dict:
+def bn_case(x, w, bn_state, channel_dim, mask=None, relu=False) -> dict:
     """flax_batch_norm in train mode on this process's rows of the f64 x
-    (B, ..., C), and the backward of sum(y * w): y, x's gradient, the BN
-    affine's gradient (this process's part of it) and the running stats."""
+    (B, ..., C), a ReLU after it where `relu`, and the backward of
+    sum(y * w): y, x's gradient, the BN affine's gradient (this process's
+    part of it) and the running stats."""
     b = x.shape[0]
     c = x.shape[channel_dim]
     bn = torch.nn.BatchNorm1d(c).double().train()
     bn.load_state_dict(bn_state, strict=False)
     xl = rows(x, b).clone().requires_grad_()
     y = flax_batch_norm(bn, xl, channel_dim,
-                        None if mask is None else rows(mask, b))
+                        None if mask is None else rows(mask, b), relu=relu)
     (y.double() * rows(w, b)).sum().backward()
     return {"y": y.detach(), "x_grad": xl.grad,
             "weight_grad": bn.weight.grad, "bias_grad": bn.bias.grad,
@@ -344,7 +335,7 @@ def conv_kinds_case(ranks, seed: int, widths=None) -> dict:
             for name in CONV_KINDS}
 
 
-CASES = {"allreduce": allreduce_case, "bn": bn_case, "step": step_case,
+CASES = {"bn": bn_case, "step": step_case,
          "trainer": trainer_case, "forward": forward_case,
          "loading": loading_case, "gradcheck": gradcheck_case,
          "conv_kinds": conv_kinds_case}

@@ -6,14 +6,16 @@ wrappers' launch counts."""
 
 from __future__ import annotations
 
-from voxelnet_tpu_torch.kernels import (dense_build, run_copy, sparse_conv,
-                                        vfe_fused)
+from voxelnet_tpu_torch.kernels import (batch_norm, dense_build, run_copy,
+                                        sparse_conv, vfe_fused)
 
 # the CUDA sources under voxelnet_tpu_torch/csrc/, the source of each kernel
 # not named after its own, and the code of the JAX package that each kernel
 # replaces
-SOURCES = ("vfe_fused", "dense_build", "run_copy", "sparse_conv")
-SOURCE = {"sparse_conv_grad": "sparse_conv", "occupancy_map": "sparse_conv"}
+SOURCES = ("vfe_fused", "dense_build", "run_copy", "sparse_conv",
+           "batch_norm")
+SOURCE = {"sparse_conv_grad": "sparse_conv", "occupancy_map": "sparse_conv",
+          **dict.fromkeys(batch_norm.KERNELS, "batch_norm")}
 REPLACES = {
     "vfe_fused": "voxelnet_tpu/kernels/vfe_fused.py:52",
     "dense_build": "voxelnet_tpu/kernels/dense_build.py:62",
@@ -27,6 +29,11 @@ REPLACES = {
     "occupancy_map": "voxelnet_tpu/models/sparse_conv.py:92-108 (none: the "
                      "lookup the output-stationary sum needs; JAX scatters "
                      "instead)",
+    # XLA code, no Pallas kernel: flax's nn.BatchNorm in train mode and
+    # its autodiff (the ReLU after it and the cast fused in)
+    **dict.fromkeys(batch_norm.KERNELS,
+                    "voxelnet_tpu/models/{vfe,middle,rpn}.py (flax "
+                    "nn.BatchNorm in train mode, XLA)"),
 }
 # each kernel's `__global__` symbol, the name CUPTI gives its launches
 SYMBOLS = {"vfe_fused": "vfe_fused_kernel",
@@ -34,7 +41,8 @@ SYMBOLS = {"vfe_fused": "vfe_fused_kernel",
            "run_copy": "run_copy_kernel",
            "sparse_conv": "sparse_conv_fwd_kernel",
            "sparse_conv_grad": "sparse_conv_grad_kernel",
-           "occupancy_map": "occupancy_kernel"}
+           "occupancy_map": "occupancy_kernel",
+           **{k: f"{k}_kernel" for k in batch_norm.KERNELS}}
 KERNELS = tuple(SYMBOLS)
 
 
@@ -51,10 +59,12 @@ def launch_counts() -> dict:
             "run_copy": run_copy.launches,
             "sparse_conv": sparse_conv.launches,
             "sparse_conv_grad": sparse_conv.grad_launches,
-            "occupancy_map": sparse_conv.occupancy_launches}
+            "occupancy_map": sparse_conv.occupancy_launches,
+            **batch_norm.launches}
 
 
 def reset_launches() -> None:
     vfe_fused.launches = dense_build.launches = run_copy.launches = 0
     sparse_conv.launches = sparse_conv.grad_launches = 0
     sparse_conv.occupancy_launches = 0
+    batch_norm.launches.update(dict.fromkeys(batch_norm.KERNELS, 0))

@@ -10,8 +10,8 @@ bridge (convert.py) maps paths one to one.
 Conv weights are cast to the input's dtype at use (f32 master weights,
 as flax's `dtype`/`param_dtype`; a no-op on the inference copy, whose
 weights `prepare_for_inference` cast once). Train mode normalises with
-batch statistics in f32 (models/bn.py); eval mode with torch's BN on the
-running stats, or not at all once folded.
+batch statistics in f32, the ReLU and the cast fused (models/bn.py); eval
+mode with torch's BN on the running stats, or not at all once folded.
 
 Under spatial sharding (`mesh`, a parallel/mesh.ProcessMesh with a model
 axis) each process holds one W slab (parallel/spatial.py): each Conv3d
@@ -81,10 +81,12 @@ class ConvBlock3D(nn.Module):
 def bn_relu(bn, y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """BN (flax batch statistics in train mode; torch's eval BN, or none
     once folded by bn_fold.py) in f32 (in the type of the BN's parameters
-    where a caller made them f64), then ReLU, in `dtype`."""
+    where a caller made them f64), then ReLU, in `dtype`. In train mode
+    the ReLU and the cast run inside the BN's normalisation (one launch
+    on the card)."""
     if bn is not None and bn.training:
-        y = flax_batch_norm(bn, y, 1)
-    elif bn is not None:
+        return flax_batch_norm(bn, y, 1, relu=True, out_dtype=dtype)
+    if bn is not None:
         y = bn(y.to(bn.weight.dtype))
     return torch.relu(y).to(dtype)
 

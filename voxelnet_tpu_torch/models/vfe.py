@@ -55,10 +55,10 @@ class VFELayer(nn.Module):
         y = torch.relu(nn.functional.linear(x, self.fcn.weight.to(dtype),
                                             self.fcn.bias.to(dtype)))
         if self.bn_over_padding:
-            y = flax_batch_norm(self.bn, y, -1, group=group).to(dtype)
+            y = flax_batch_norm(self.bn, y, -1, group=group, out_dtype=dtype)
             agg = y.amax(dim=2, keepdim=True)
         else:
-            y = flax_batch_norm(self.bn, y, -1, mask, group).to(dtype)
+            y = flax_batch_norm(self.bn, y, -1, mask, group, out_dtype=dtype)
             agg = _masked_max(y, mask)
         return torch.cat([y, agg.expand_as(y)], dim=-1) * mask.to(dtype)
 

@@ -6,8 +6,9 @@ here every process runs the same step on its part of the global batch, and
 the places where the parts meet are collectives, each over a `Group` of
 processes (parallel/mesh.py lays the groups out):
 
-  * `all_reduce_sum` (forward and backward a SUM all-reduce): the
-    BatchNorm statistics of train mode (models/bn.py);
+  * `all_reduce_in_place`: the BatchNorm statistics of train mode and
+    their gradient's sums, one SUM all-reduce each way a call
+    (models/bn.py);
   * `all_reduce_` on one flat buffer: the gradient and the metric vector
     of the train and eval steps (training/train_step.py). The loss is a
     sum over frames, so the global gradient is the SUM of the processes'
@@ -195,34 +196,6 @@ def all_reduce_in_place(t: torch.Tensor, group: Group) -> None:
         raise RuntimeError(f"group {group.name} {group.ranks} was not made "
                            "in this process group (distributed.make_group)")
     dist.all_reduce(t, group=_handles[group.ranks])
-
-
-class _AllReduceSum(torch.autograd.Function):
-    """y = the SUM of x over the group; the gradient of x is the SUM of
-    the group's gradients of y."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        y = x.clone(memory_format=torch.contiguous_format)
-        all_reduce_in_place(y, group)
-        return y
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.clone(memory_format=torch.contiguous_format)
-        all_reduce_in_place(grad, ctx.group)
-        return grad, None
-
-
-def all_reduce_sum(x: torch.Tensor, group: Group | None = None
-                   ) -> torch.Tensor:
-    """Differentiable SUM over `group` (default the world); x itself over
-    a group of one."""
-    group = group or world_group()
-    if group.size == 1:
-        return x
-    return _AllReduceSum.apply(x, group)
 
 
 def all_reduce_(tensors: list[torch.Tensor],

@@ -34,7 +34,8 @@ Spans: `infer` (prepare, vfe, dense, middle, rpn, decode, nms; nms.iou
 and nms.greedy inside nms); `train` (voxelize, targets, forward, loss,
 backward, all_reduce, update; `bn` inside forward for each batch-norm in
 train mode, `bn.backward` inside backward). Counters: `nms.iters`,
-`nms.iou_pairs`, `nms.iou_pairs_live`, `host.wait_ns`.
+`nms.iou_pairs`, `nms.iou_pairs_live`, `host.wait_ns`, `bn.launches` (each
+launch of the batch norm's kernels, kernels/batch_norm.py).
 """
 
 from __future__ import annotations
